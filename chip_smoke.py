@@ -208,6 +208,21 @@ def matmul_rows(torch, plan, timer) -> list[dict]:
                             f"blocks {(bm, bk, bn)}")
         print(f"[matmul_int8] integer-exact at {(m, k, n)} for every tile",
               flush=True)
+    # contiguous views off a 16-byte boundary take the masked scalar loads
+    m, k, n = 64, 256, 128
+    xbuf = torch.randint(-127, 128, (8 + m * k,), dtype=torch.int8,
+                         device="cuda", generator=g)
+    wbuf = torch.randint(-127, 128, (8 + k * n,), dtype=torch.int8,
+                         device="cuda", generator=g)
+    x, w = xbuf[8:].view(m, k), wbuf[8:].view(k, n)
+    one_m, one_n = torch.ones(m, device="cuda"), torch.ones(n, device="cuda")
+    out = mm_kernel.matmul_int8(x, w, one_m, one_n, bm=64, bk=64, bn=64,
+                                out_dtype=torch.float32)
+    require(torch.equal(out, matmul_int8_ref(x, w, one_m, one_n,
+                                             torch.float32)),
+            "matmul_int8 exact on views off a 16-byte boundary")
+    print("[matmul_int8] integer-exact on views off a 16-byte boundary",
+          flush=True)
     rows = []
     for op, count in unique_ops(plan, "matmul_int8"):
         s = op.spec

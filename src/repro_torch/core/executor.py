@@ -184,11 +184,11 @@ def _gemm_mkn(layer: wl.Layer) -> tuple[int, int, int]:
 def _matmul_op(idx: int, lr, arch: CimArch) -> ExecOp:
     m, k, n = _gemm_mkn(lr.layer)
     mapping = mapping_from_json(lr.record["mapping"])
-    c = select_blocks_from_mapping(mapping, lr.layer, arch,
-                                   cap=EXEC_BLOCK_CAP)
+    bm, bk, bn = select_blocks_from_mapping(mapping, lr.layer, arch,
+                                            cap=EXEC_BLOCK_CAP)
     return ExecOp(
         name=lr.layer.name, kernel="matmul_int8",
-        spec={"m": m, "k": k, "n": n, "bm": c.bm, "bk": c.bk, "bn": c.bn},
+        spec={"m": m, "k": k, "n": n, "bm": bm, "bk": bk, "bn": bn},
         count=lr.count, layer_indices=(idx,),
         predicted_cycles=lr.record["cycles"])
 

@@ -12,8 +12,7 @@ What changes from the TPU bridge:
     count must fit what one CTA may use, in place of the pipelined
     (doubled) working set against VMEM. The int32 / f32 accumulators live
     in registers on the GPU, not in the on-chip buffer;
-  * machine constants are H100 SXM data-sheet figures (below), never the
-    TPU's.
+  * the shared-memory default is the H100's (below), never the TPU's VMEM.
 
 The bridge MIP (`select_matmul_blocks`) is off the measured-execution
 path and is not ported yet.
@@ -21,7 +20,6 @@ path and is not ported yet.
 
 from __future__ import annotations
 
-import dataclasses
 import math
 
 import torch
@@ -32,19 +30,6 @@ from repro_torch.kernels.matmul_int8 import kernel as mm_kernel
 #: Shared memory one CTA can use on an H100 (227 KB of the SM's 256 KB,
 #: as dynamic shared memory after opting in).
 SMEM_BYTES = 232_448
-HBM_BW = 3.35e12            # bytes/s, H100 SXM
-INT8_OPS = 1979e12          # dense int8 tensor-core ops/s, H100 SXM
-
-
-@dataclasses.dataclass
-class BlockChoice:
-    bm: int
-    bk: int
-    bn: int
-    stages: int
-    est_seconds: float      # bound of the blocked traffic (see below)
-    smem_bytes: int         # one CTA's shared memory, one stage
-    status: str
 
 
 def device_smem_bytes() -> int:
@@ -72,8 +57,9 @@ def _smaller(tiles, t: int) -> int:
 
 def select_blocks_from_mapping(mapping, layer, arch, *,
                                smem_bytes: int | None = None,
-                               cap: int = 128) -> BlockChoice:
-    """Translate a solved MIREDO mapping into matmul_int8 block shapes.
+                               cap: int = 128) -> tuple[int, int, int]:
+    """Translate a solved MIREDO mapping into matmul_int8 blocks
+    ``(bm, bk, bn)``.
 
     The measured-execution backend (`core/executor.py`) runs each optimized
     GEMM on kernels/matmul_int8; the block shapes come from the mapping the
@@ -85,7 +71,9 @@ def select_blocks_from_mapping(mapping, layer, arch, *,
     kernel's shared memory times its stage count fits one CTA (eq. 9).
 
     ``cap`` bounds every block dim; the measured-execution backend lowers
-    it so each op spans several CTAs.
+    it so each op spans several CTAs. The kernel's tiles are static shared
+    memory (at most 48 KB), which every tile of its set fits in one stage,
+    so the halving acts only when ``smem_bytes`` asks for less.
     """
     from repro_torch.core import workload as wl
 
@@ -105,10 +93,10 @@ def select_blocks_from_mapping(mapping, layer, arch, *,
     bm = _snap(hints["N"], m, tiles_m, cap)
     bk = _snap(hints["C"], k, tiles_k, cap)
     bn = _snap(hints["K"], n, tiles_n, cap)
-    budget = min(mm_kernel.SMEM_LIMIT, device_smem_bytes()
-                 if smem_bytes is None else smem_bytes)
-    ws = lambda: mm_kernel.smem_bytes(bm, bk, bn)
-    while mm_kernel.STAGES * ws() > budget:        # eq. 9 per CTA
+    budget = mm_kernel.SMEM_LIMIT if smem_bytes is None else \
+        min(mm_kernel.SMEM_LIMIT, smem_bytes)
+    while mm_kernel.STAGES * mm_kernel.smem_bytes(bm, bk, bn) > budget:
+        # eq. 9 per CTA
         if bm >= max(bk, bn) and bm > min(tiles_m):
             bm = _smaller(tiles_m, bm)
         elif bk >= bn and bk > min(tiles_k):
@@ -117,11 +105,7 @@ def select_blocks_from_mapping(mapping, layer, arch, *,
             bn = _smaller(tiles_n, bn)
         else:
             break
-    # x is re-read once per column of CTAs, w once per row of CTAs
-    traffic = m * k * math.ceil(n / bn) + k * n * math.ceil(m / bm) + \
-        m * n * 4
-    est = max(traffic / HBM_BW, 2.0 * m * n * k / INT8_OPS)
-    return BlockChoice(bm, bk, bn, mm_kernel.STAGES, est, ws(), "MAPPED")
+    return bm, bk, bn
 
 
 def select_flash_blocks(seq_q: int, seq_k: int, head_dim: int, *,

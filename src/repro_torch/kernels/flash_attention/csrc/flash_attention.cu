@@ -185,12 +185,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
                    cudaStream_t stream) {
   auto kern = flash_attention_kernel<BQ, BK, T>;
   const size_t bytes = smem_bytes<BQ, BK, T>(hd);
-  static size_t opted_in = 48 * 1024;  // per instantiation
-  if (bytes > opted_in) {
+  // past 48 KB a launch needs the opt-in, which CUDA keeps per device: set
+  // it on every such launch rather than cache it for the process
+  if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
-    opted_in = bytes;
   }
   dim3 grid(B * H, (Lq + BQ - 1) / BQ);
   kern<<<grid, kThreads, bytes, stream>>>(

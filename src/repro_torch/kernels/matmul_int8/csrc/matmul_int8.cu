@@ -40,7 +40,8 @@ template <int BM, int BN, int BK>
 __global__ void __launch_bounds__(kThreads)
 matmul_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                    const float* __restrict__ xs, const float* __restrict__ ws,
-                   void* __restrict__ out, int M, int N, int K, int out_bf16) {
+                   void* __restrict__ out, int M, int N, int K, int out_bf16,
+                   int x_vec, int w_vec) {
   static_assert(BM % 16 == 0 && BN % 16 == 0 && BK % 16 == 0, "tile");
   constexpr int TM = BM / 16;
   constexpr int TN = BN / 16;
@@ -53,8 +54,6 @@ matmul_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   const int ty = tid / 16;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
-  const bool x_vec = (K % 16) == 0;  // 16-byte aligned rows of x_q
-  const bool w_vec = (N % 16) == 0;  // 16-byte aligned rows of w_q
 
   int acc[TM][TN];
 #pragma unroll
@@ -137,9 +136,13 @@ template <int BM, int BN, int BK>
 cudaError_t launch(const int8_t* x, const int8_t* w, const float* xs,
                    const float* ws, void* out, int M, int N, int K,
                    int out_bf16, cudaStream_t stream) {
+  // 16-byte loads need every row of the operand to start 16-byte aligned:
+  // the base pointer (a view may carry any offset) and the row length
+  const bool x_vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && K % 16 == 0;
+  const bool w_vec = reinterpret_cast<uintptr_t>(w) % 16 == 0 && N % 16 == 0;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   matmul_int8_kernel<BM, BN, BK><<<grid, kThreads, 0, stream>>>(
-      x, w, xs, ws, out, M, N, K, out_bf16);
+      x, w, xs, ws, out, M, N, K, out_bf16, x_vec, w_vec);
   return cudaGetLastError();
 }
 

@@ -50,6 +50,29 @@ def test_matmul_int8_integer_exact(cuda, m, k, n):
                 assert torch.equal(out, ref), (bm, bk, bn)
 
 
+@pytest.mark.parametrize("offset", [1, 8])
+def test_matmul_int8_misaligned_views(cuda, offset):
+    """Contiguous views that start off a 16-byte boundary, with K and N
+    multiples of 16: the kernel must take its masked scalar loads there,
+    not fault on a misaligned 16-byte load."""
+    from repro_torch.kernels.matmul_int8 import kernel
+    from repro_torch.kernels.matmul_int8.ref import matmul_int8_ref
+    m, k, n = 64, 256, 128
+    g = _gen(3)
+    xbuf = torch.randint(-127, 128, (offset + m * k,), dtype=torch.int8,
+                         device=cuda, generator=g)
+    wbuf = torch.randint(-127, 128, (offset + k * n,), dtype=torch.int8,
+                         device=cuda, generator=g)
+    x, w = xbuf[offset:].view(m, k), wbuf[offset:].view(k, n)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    ones_m, ones_n = torch.ones(m, device=cuda), torch.ones(n, device=cuda)
+    out = kernel.matmul_int8(x, w, ones_m, ones_n, bm=64, bk=64, bn=64,
+                             out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(out, matmul_int8_ref(x, w, ones_m, ones_n,
+                                            torch.float32))
+
+
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
 def test_quantized_matmul_kernel_vs_plain(cuda, out_dtype):
     from repro_torch.kernels.matmul_int8 import kernel

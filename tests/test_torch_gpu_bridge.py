@@ -42,16 +42,14 @@ def test_mapped_blocks_legal_across_reduced_zoo():
     layers = _zoo_gemms()
     assert len(layers) >= 10
     for layer in layers:
-        c = select_blocks_from_mapping(greedy_mapping(layer, ARCH), layer,
-                                       ARCH, cap=EXEC_BLOCK_CAP)
-        assert c.bm in mm_kernel.BM_TILES, (layer.name, c)
-        assert c.bk in mm_kernel.BK_TILES, (layer.name, c)
-        assert c.bn in mm_kernel.BN_TILES, (layer.name, c)
-        assert max(c.bm, c.bk, c.bn) <= EXEC_BLOCK_CAP
-        assert c.smem_bytes == mm_kernel.smem_bytes(c.bm, c.bk, c.bn)
-        assert c.stages * c.smem_bytes <= min(SMEM_BYTES,
-                                              mm_kernel.SMEM_LIMIT)
-        assert c.est_seconds > 0
+        bm, bk, bn = select_blocks_from_mapping(
+            greedy_mapping(layer, ARCH), layer, ARCH, cap=EXEC_BLOCK_CAP)
+        assert bm in mm_kernel.BM_TILES, (layer.name, bm)
+        assert bk in mm_kernel.BK_TILES, (layer.name, bk)
+        assert bn in mm_kernel.BN_TILES, (layer.name, bn)
+        assert max(bm, bk, bn) <= EXEC_BLOCK_CAP
+        assert mm_kernel.STAGES * mm_kernel.smem_bytes(bm, bk, bn) <= \
+            min(SMEM_BYTES, mm_kernel.SMEM_LIMIT)
 
 
 def test_mapped_blocks_shrink_to_fit_a_small_budget():
@@ -60,10 +58,10 @@ def test_mapped_blocks_shrink_to_fit_a_small_budget():
     layer = wl.gemm("t.g", 128, 4096, 4096)
     mp = greedy_mapping(layer, ARCH)
     big = select_blocks_from_mapping(mp, layer, ARCH)
-    budget = big.smem_bytes // 2
+    budget = mm_kernel.smem_bytes(*big) // 2
     small = select_blocks_from_mapping(mp, layer, ARCH, smem_bytes=budget)
-    assert mm_kernel.STAGES * small.smem_bytes <= budget
-    assert (small.bm, small.bk, small.bn) != (big.bm, big.bk, big.bn)
+    assert mm_kernel.STAGES * mm_kernel.smem_bytes(*small) <= budget
+    assert small != big
 
 
 def test_mapped_blocks_do_not_exceed_the_dims_needlessly():
@@ -71,11 +69,11 @@ def test_mapped_blocks_do_not_exceed_the_dims_needlessly():
     work, so small dims keep small blocks whatever the mapping asks."""
     for m, n, k in [(8, 24, 72), (96, 360, 200), (1, 1, 1), (20, 40, 40)]:
         layer = wl.gemm("t.g", m, n, k)         # (m x k) @ (k x n)
-        c = select_blocks_from_mapping(greedy_mapping(layer, ARCH), layer,
-                                       ARCH)
-        for b, d, tiles in ((c.bm, m, mm_kernel.BM_TILES),
-                            (c.bk, k, mm_kernel.BK_TILES),
-                            (c.bn, n, mm_kernel.BN_TILES)):
+        bm, bk, bn = select_blocks_from_mapping(
+            greedy_mapping(layer, ARCH), layer, ARCH)
+        for b, d, tiles in ((bm, m, mm_kernel.BM_TILES),
+                            (bk, k, mm_kernel.BK_TILES),
+                            (bn, n, mm_kernel.BN_TILES)):
             assert b <= min([t for t in tiles if t >= d] or [max(tiles)])
 
 
