@@ -7,24 +7,38 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 
   1. device — the card's name and power limit (``nvidia-smi``), torch and
      CUDA versions;
-  2. build — both CUDA kernels from the sources in the checkout, one
+  2. build — the three CUDA kernels from the sources in the checkout, one
      ``nvcc`` per source, started together; registers, shared memory and
      spills of every instantiation (``-Xptxas -v``);
-  3. main path — ``repro_torch.serve_lm`` for glm4-9b at its published
-     widths under ``decode_32k``, with a cold solve cache: the MIREDO
-     solve, the lowered plan, every op on its kernel and checked against
-     its oracle. The launch counters are zeroed just before and read just
-     after; every op must have run on its kernel (``path == "cuda"``);
+  3. main paths, each with a cold solve cache and every launch counter
+     zeroed just before it and read just after; every op must run on its
+     kernel (``path == "cuda"``) and pass its oracle:
+     A. ``repro_torch.serve_lm`` for glm4-9b at its published widths under
+        ``decode_32k`` (matmul_int8, flash_attention);
+     B. ``repro_torch.serve_lm`` for mamba2-1.3b at its published widths
+        under ``prefill_32k``, the prompt pass of 32 sequences of 32k
+        tokens (matmul_int8, ssd_scan);
+     C. ``repro_torch.exec_lm`` at published widths, quick solves, over
+        minicpm-2b and mamba2-1.3b x the three execution scenarios: all
+        three kernel families and both models' wGrad GEMMs;
   4. kernels vs plain — each kernel against its plain PyTorch version on
      the same inputs on the card: matmul_int8 integer-exact with unit
-     scales at K <= 1024 for every tile, then at every main-path shape and
-     block; flash_attention in causal prefill (L = 1024, 4096),
-     bidirectional, L = 264 and the main path's decode step, in float32
-     and bfloat16. Each is timed (CUDA events, L2 flushed before every
-     launch, median) beside the plain version, one PyTorch library call
-     computing the same function (timed here only, never used by the
-     port) and the least time the card could take (bound);
-  5. the last line: ``{"ok": true, "device": {...}}``.
+     scales at K <= 1024 and at K = 1 and M = 1 for every tile, then at
+     every shape and block of paths A and B; flash_attention in causal
+     prefill (L = 1024, 4096), bidirectional, L = 264 and path A's decode
+     step, in float32 and bfloat16; ssd_scan at every one-cell shape the
+     plans run, at odd Q = 24 and at the full grid of one mamba2-1.3b
+     ``prefill_32k`` layer for one sequence, in float32 and bfloat16.
+     Each is timed (CUDA events, L2 flushed before every launch, median)
+     beside the plain version, one PyTorch library call computing the
+     same function where there is one (timed here only, never used by
+     the port) and the least time the card could take (bound). Paths A
+     and B already hold every op of theirs against its oracle, and path
+     C every op of its plans;
+  5. the ``kernels`` line: matmul_int8 and flash_attention count-weighted
+     over path A's plan (one decode step), ssd_scan over path B's (one
+     prompt pass); launches are summed over the three paths;
+  6. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero before printing any result.
@@ -52,12 +66,15 @@ PEAK_OPS_S = {"int8": 1979e12, "bfloat16": 989e12, "float32": 67e12}
 REPLACES = {
     "matmul_int8": "src/repro/kernels/matmul_int8/kernel.py:61",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:85",
+    "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:52",
 }
 SOURCES = {
     "matmul_int8": "src/repro_torch/kernels/matmul_int8/csrc/matmul_int8.cu",
     "flash_attention":
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+    "ssd_scan": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
 }
+KERNELS = tuple(SOURCES)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -139,35 +156,105 @@ def phase_build() -> None:
                  for bq in fa_kernel.BQ_TILES for bk in fa_kernel.BK_TILES}
         print(f"[build] flash_attention dynamic smem bytes at hd=128, {dt} "
               f"(bq x bk): {sizes}")
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    sizes = {f"{n}x{p}": ssd_kernel.smem_bytes(n, p)
+             for n, p in ((8, 8), (128, 64), (128, 128))}
+    print(f"[build] ssd_scan dynamic smem bytes, any dtype (N x P): {sizes}")
 
 
-def phase_main_path(torch) -> tuple:
-    from repro_torch import serve_lm
+def _counters() -> dict:
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.matmul_int8 import kernel as mm_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    return {"matmul_int8": mm_kernel, "flash_attention": fa_kernel,
+            "ssd_scan": ssd_kernel}
+
+
+def drive(torch, label: str, fn):
+    """Run one main path with a cold solve cache, its launch counters
+    zeroed just before and read just after; returns (result, launches)."""
+    mods = _counters()
     with tempfile.TemporaryDirectory(prefix="miredo-cache-") as cache:
         os.environ["MIREDO_CACHE"] = cache        # cold: the MIP solves
-        mm_kernel.launches = fa_kernel.launches = 0
+        for m in mods.values():
+            m.launches = 0
         t0 = time.monotonic()
-        rep = serve_lm.main(["--arch", "glm4-9b", "--shape", "decode_32k",
-                             "--device", "cuda"])
+        out = fn()
         torch.cuda.synchronize()
-        launches = {"matmul_int8": mm_kernel.launches,
-                    "flash_attention": fa_kernel.launches}
+        launches = {k: m.launches for k, m in mods.items()}
         wall = time.monotonic() - t0
+    print(f"[main {label}] {wall:.1f} s wall; launches {launches}",
+          flush=True)
+    return out, launches
+
+
+def check_plan(label: str, rep, kernels: set[str], launches: dict) -> None:
     plan = rep.plan
-    print(f"[main] glm4-9b decode_32k: {wall:.1f} s wall; launches "
-          f"{launches}", flush=True)
-    require(rep.numerics_ok, f"numerics (max rel err {rep.max_rel_err})")
+    require(rep.numerics_ok,
+            f"{label}: numerics (max rel err {rep.max_rel_err})")
     require(all(math.isfinite(op.measured_s) and op.measured_s > 0
-                for op in plan.ops), "every op timed")
+                for op in plan.ops), f"{label}: every op timed")
     for op in plan.ops:
-        require(op.path == "cuda", f"{op.name} ran on {op.path}")
-    require({op.kernel for op in plan.ops} == set(launches),
-            "the plan reaches both kernels")
-    for name, n in launches.items():
-        require(n > 0, f"{name} never launched on the main path")
-    return plan, rep, launches
+        require(op.path == "cuda", f"{label}: {op.name} ran on {op.path}")
+    require({op.kernel for op in plan.ops} == kernels,
+            f"{label}: the plan reaches {sorted(kernels)}")
+    for name in kernels:
+        require(launches[name] > 0,
+                f"{label}: {name} never launched on the main path")
+    for name in set(KERNELS) - kernels:
+        require(launches[name] == 0, f"{label}: {name} launched off-plan")
+    rank = rep.rank_corr
+    print(f"[main {label}] {plan.model} {plan.scenario}: {rep.n_ops} ops, "
+          f"{rep.n_unique} unique, {rep.measured_total_s * 1e3:.4f} ms "
+          f"count-weighted, rank corr "
+          f"{rank if rank is None else round(rank, 4)}, max rel err "
+          f"{rep.max_rel_err:.3e}", flush=True)
+    for op in plan.ops:
+        print(f"[main {label}]   {op.kernel:>15} {op.name} x{op.count}: "
+              f"{op.measured_s * 1e3:.4f} ms, x count "
+              f"{op.count * op.measured_s * 1e3:.4f} ms", flush=True)
+
+
+def phase_path_a(torch) -> tuple:
+    from repro_torch import serve_lm
+    rep, launches = drive(torch, "A", lambda: serve_lm.main(
+        ["--arch", "glm4-9b", "--shape", "decode_32k", "--device", "cuda"]))
+    check_plan("A", rep, {"matmul_int8", "flash_attention"}, launches)
+    return rep, launches
+
+
+def phase_path_b(torch) -> tuple:
+    from repro_torch import serve_lm
+    rep, launches = drive(torch, "B", lambda: serve_lm.main(
+        ["--arch", "mamba2-1.3b", "--shape", "prefill_32k", "--device",
+         "cuda"]))
+    check_plan("B", rep, {"matmul_int8", "ssd_scan"}, launches)
+    return rep, launches
+
+
+def phase_path_c(torch) -> tuple:
+    from repro_torch import exec_lm
+    out, launches = drive(torch, "C", lambda: exec_lm.run(
+        quick=True, archs=exec_lm.REDUCED_ARCHS, device="cuda"))
+    for r in out["rows"]:
+        require(r["numerics_ok"], f"C: {r['model']}/{r['scenario']} "
+                f"numerics (max rel err {r['max_rel_err']})")
+        require(r["paths"] == ["cuda"],
+                f"C: {r['model']}/{r['scenario']} ran on {r['paths']}")
+    require(len(out["rows"]) == len(exec_lm.REDUCED_ARCHS) *
+            len(exec_lm.EXEC_SHAPES), "C: every (model, scenario) row")
+    require(set(out["kernels"]) == set(KERNELS),
+            f"C: kernel families {out['kernels']}")
+    require(set(out["wgrad_covered"]) == set(exec_lm.REDUCED_ARCHS),
+            f"C: wGrad covered for {out['wgrad_covered']}")
+    for name in KERNELS:
+        require(launches[name] > 0, f"C: {name} never launched")
+    rank = out["pooled_rank_corr"]
+    # not gated: RANK_FLOOR was set on interpret-mode CPU times
+    print(f"[main C] exec_lm: {len(out['rows'])} rows, pooled spearman "
+          f"{rank} over {out['n_rank_points']} points (floor "
+          f"{exec_lm.RANK_FLOOR}, not gated on the card)", flush=True)
+    return out, launches
 
 
 def unique_ops(plan, kernel: str) -> list[tuple]:
@@ -180,16 +267,19 @@ def unique_ops(plan, kernel: str) -> list[tuple]:
             for key, op in first.items()]
 
 
-def matmul_rows(torch, plan, timer) -> list[dict]:
-    from repro_torch.core.executor import NUMERICS_TOL
+def matmul_rows(torch, plans, timer) -> list[dict]:
+    """``plans``: (path label, plan) of the main paths whose shapes are
+    held and timed here."""
     from repro_torch.kernels.matmul_int8 import kernel as mm_kernel
-    from repro_torch.kernels.matmul_int8.ref import (matmul_int8_ref,
-                                                     quantize_rowwise)
+    from repro_torch.kernels.matmul_int8.ref import matmul_int8_ref
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     # integer-exact: unit scales, |acc| <= 127**2 * 1024 < 2**24
+    # K = 1 (SSD state update) and M = 1 (readout, LM head) take the
+    # masked scalar loads
     for m, k, n in [(128, 1024, 256), (100, 200, 360), (8, 72, 100),
-                    (130, 24, 1000)]:
+                    (130, 24, 1000), (128, 1, 64), (1, 128, 64),
+                    (16, 1, 64)]:
         x = torch.randint(-127, 128, (m, k), dtype=torch.int8,
                           device="cuda", generator=g)
         w = torch.randint(-127, 128, (k, n), dtype=torch.int8,
@@ -224,6 +314,17 @@ def matmul_rows(torch, plan, timer) -> list[dict]:
     print("[matmul_int8] integer-exact on views off a 16-byte boundary",
           flush=True)
     rows = []
+    for label, plan in plans:
+        rows += _matmul_plan_rows(torch, label, plan, timer, g)
+    return rows
+
+
+def _matmul_plan_rows(torch, label, plan, timer, g) -> list[dict]:
+    from repro_torch.core.executor import NUMERICS_TOL
+    from repro_torch.kernels.matmul_int8 import kernel as mm_kernel
+    from repro_torch.kernels.matmul_int8.ref import (matmul_int8_ref,
+                                                     quantize_rowwise)
+    rows = []
     for op, count in unique_ops(plan, "matmul_int8"):
         s = op.spec
         m, k, n = s["m"], s["k"], s["n"]
@@ -236,8 +337,10 @@ def matmul_rows(torch, plan, timer) -> list[dict]:
             xq, wq, xs, ws, bm=s["bm"], bk=s["bk"], bn=s["bn"],
             out_dtype=torch.float32)
         plain = lambda: matmul_int8_ref(xq, wq, xs, ws, torch.float32)
-        lib = lambda: torch._int_mm(xq, wq).to(torch.float32) * \
-            xs[:, None] * ws[None, :]
+        # torch._int_mm takes M > 16 and K, N multiples of 8 only
+        lib = (lambda: torch._int_mm(xq, wq).to(torch.float32) *
+               xs[:, None] * ws[None, :]) \
+            if m > 16 and k % 8 == 0 and n % 8 == 0 else None
         out, ref = kern(), plain()
         rel = float((out.double() - ref.double()).norm() /
                     ref.double().norm())
@@ -246,16 +349,17 @@ def matmul_rows(torch, plan, timer) -> list[dict]:
                 f"{op.name} rel err {rel}")
         b_ms, b_by = bound_ms(m * k + k * n + 4 * (m + n) + 4 * m * n,
                               2.0 * m * n * k, "int8")
-        row = {"op": op.name, "shape": (m, k, n),
+        row = {"path": label, "op": op.name, "shape": (m, k, n),
                "blocks": (s["bm"], s["bk"], s["bn"]), "count": count,
                "rel_err": rel,
                "max_abs_err": float((out - ref).abs().max()),
                "ms": timer(kern), "plain_ms": timer(plain),
-               "library_ms": timer(lib), "bound_ms": b_ms, "bound_by": b_by,
-               "op_ms": op.measured_s * 1e3}
+               "library_ms": timer(lib) if lib else None, "bound_ms": b_ms,
+               "bound_by": b_by, "op_ms": op.measured_s * 1e3}
         rows.append(row)
         print(f"[matmul_int8] {json.dumps(row)}", flush=True)
         del xq, wq, out, ref
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -306,7 +410,8 @@ def flash_rows(torch, plan, timer) -> list[dict]:
                  else lq * lk)
         b_ms, b_by = bound_ms(el * (2 * b * lq * h * hd + 2 * b * lk * h * hd),
                               4.0 * b * h * pairs * hd, dt)
-        row = {"op": name, "b": b, "lq": lq, "lk": lk, "h": h, "hd": hd,
+        row = {"path": "A" if op is not None else None, "op": name,
+               "b": b, "lq": lq, "lk": lk, "h": h, "hd": hd,
                "causal": causal, "dtype": dt, "blocks": (bq, bk),
                "count": count, "rel_err": rel,
                "max_abs_err": float((out.float() - ref.float()).abs().max()),
@@ -319,22 +424,104 @@ def flash_rows(torch, plan, timer) -> list[dict]:
     return rows
 
 
-def kernel_entry(name: str, rows: list[dict], launches: int) -> dict:
-    """One kernel's line entry: times are count-weighted sums over the
-    main-path ops it ran (one decode step of the plan), errors the largest
-    over every shape it was held at."""
-    main = [r for r in rows if r["count"] > 0]
+def ssd_rows(torch, plans, timer) -> list[dict]:
+    """ssd_scan against its plain version: every one-cell shape of the
+    plans' ``ssd_intra`` ops (as the executor runs them), odd Q = 24, and
+    the full grid of one mamba2-1.3b ``prefill_32k`` layer for one
+    sequence, each in float32 and bfloat16. Only path B's float32 op
+    counts toward the main-path total."""
+    from repro_torch.core.executor import NUMERICS_TOL
+    from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
+    from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    # (label, op or None, count, (b, nc, q, h, n, p))
+    cases, seen = [], set()
+    for label, plan in plans:
+        for op, count in unique_ops(plan, "ssd_scan"):
+            s = op.spec
+            shape = (1, 1, s["q"], 1, s["n"], s["p"])
+            if label == "B" or shape not in seen:
+                cases.append((label, op, count if label == "B" else 0,
+                              shape))
+                seen.add(shape)
+    # path C's exec_train cell (q 64; its exec_prefill cell is path B's),
+    # odd Q, and one prefill_32k layer of one sequence: B=1, NC=128, Q=256,
+    # H=64, N=128, P=64
+    extra = [(1, 1, 64, 1, 128, 64), (1, 1, 24, 1, 8, 8),
+             (2, 2, 24, 2, 16, 16), (1, 128, 256, 64, 128, 64)]
+    cases += [(None, None, 0, shape) for shape in extra if shape not in seen]
+    rows = []
+    for label, op, count, (b, nc, q, h, n, p) in cases:
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            c = torch.randn((b, nc, q, h, n), device="cuda", generator=g)
+            bb = torch.randn((b, nc, q, h, n), device="cuda", generator=g)
+            dtv = 0.001 + 0.099 * torch.rand((b, nc, q, h), device="cuda",
+                                             generator=g)
+            a = -(0.5 + 3.5 * torch.rand((h,), device="cuda", generator=g))
+            args = [v.to(dtype) for v in
+                    (c, bb, torch.cumsum(dtv * a, dim=2), dtv,
+                     torch.randn((b, nc, q, h, p), device="cuda",
+                                 generator=g))]
+            del c, bb, dtv
+            kern = lambda: ssd_intra_chunk(*args)
+            plain = lambda: ssd_intra_chunk_ref(*args)
+            out, ref = kern(), plain()
+            torch.cuda.synchronize()
+            rel = float((out.double() - ref.double()).norm() /
+                        ref.double().norm())
+            name = op.name if op is not None else "shape"
+            require(bool(torch.isfinite(out).all()) and
+                    out.shape == args[4].shape and out.dtype == dtype,
+                    f"ssd_scan {name} finite, shaped, typed")
+            require(rel <= NUMERICS_TOL["ssd_scan"],
+                    f"ssd_scan {(b, nc, q, h, n, p, dt)} rel err {rel}")
+            el = 4 if dt == "float32" else 2
+            cells = b * nc * h
+            b_ms, b_by = bound_ms(
+                cells * (2 * q * n + 2 * q + 2 * q * p) * el,
+                cells * 2.0 * (n + p) * q * (q + 1) / 2, dt)
+            main = dt == "float32" and count > 0
+            row = {"path": label if dt == "float32" else None, "op": name,
+                   "shape": (b, nc, q, h, n, p), "dtype": dt,
+                   "count": count if main else 0, "rel_err": rel,
+                   "max_abs_err": float((out.float() - ref.float())
+                                        .abs().max()),
+                   "ms": timer(kern), "plain_ms": timer(plain),
+                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                   "op_ms": op.measured_s * 1e3
+                   if op is not None and dt == "float32" else None}
+            rows.append(row)
+            print(f"[ssd_scan] {json.dumps(row)}", flush=True)
+            del args, out, ref
+            torch.cuda.empty_cache()
+    return rows
+
+
+def kernel_entry(name: str, rows: list[dict], path: str,
+                 launches: dict[str, dict]) -> dict:
+    """One kernel's line entry: times are count-weighted sums over the ops
+    of main path ``path`` it ran (one step of that plan), errors the
+    largest over every shape it was held at, launches the sum over every
+    main path's run."""
+    main = [r for r in rows if r["count"] > 0 and r["path"] == path]
     tot = lambda key: sum(r["count"] * r[key] for r in main)
     by_bytes = sum(r["count"] * r["bound_ms"] for r in main
                    if r["bound_by"] == "bytes")
+    library = None if any(r["library_ms"] is None for r in main) \
+        else tot("library_ms")
     return {"name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches,
+            "replaces": REPLACES[name],
+            "launches": sum(l[name] for l in launches.values()),
+            "launches_by_path": {k: l[name] for k, l in launches.items()},
+            "weighted_over": path,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": tot("ms"), "plain_ms": tot("plain_ms"),
             "bound_ms": tot("bound_ms"),
             "bound_by": "bytes" if by_bytes >= tot("bound_ms") / 2
             else "operations",
-            "library_ms": tot("library_ms")}
+            "library_ms": library}
 
 
 def main() -> int:
@@ -357,20 +544,30 @@ def main() -> int:
 
     info = phase_device(torch)
     phase_build()
-    plan, rep, launches = phase_main_path(torch)
+    rep_a, launch_a = phase_path_a(torch)
+    rep_b, launch_b = phase_path_b(torch)
+    out_c, launch_c = phase_path_c(torch)
+    launches = {"A": launch_a, "B": launch_b, "C": launch_c}
+    plans = [("A", rep_a.plan), ("B", rep_b.plan)]
     timer = Timer(torch)
-    mm = matmul_rows(torch, plan, timer)
-    fa = flash_rows(torch, plan, timer)
-    kernels = [kernel_entry("matmul_int8", mm, launches["matmul_int8"]),
-               kernel_entry("flash_attention", fa,
-                            launches["flash_attention"])]
-    rank = rep.rank_corr
-    print(f"[main] report: {rep.n_ops} ops, {rep.n_unique} unique, "
-          f"{rep.measured_total_s * 1e3:.4f} ms count-weighted, rank corr "
-          f"{rank if rank is None else round(rank, 4)}, max rel err "
-          f"{rep.max_rel_err:.3e}; card {info['nvidia_smi']}")
+    mm = matmul_rows(torch, plans, timer)
+    fa = flash_rows(torch, rep_a.plan, timer)
+    ssd = ssd_rows(torch, plans, timer)
+    kernels = [kernel_entry("matmul_int8", mm, "A", launches),
+               kernel_entry("flash_attention", fa, "A", launches),
+               kernel_entry("ssd_scan", ssd, "B", launches)]
+    for label, rep in (("A", rep_a), ("B", rep_b)):
+        rank = rep.rank_corr
+        print(f"[main {label}] report: {rep.plan.model} {rep.plan.scenario}"
+              f", {rep.n_ops} ops, {rep.n_unique} unique, "
+              f"{rep.measured_total_s * 1e3:.4f} ms count-weighted, rank "
+              f"corr {rank if rank is None else round(rank, 4)}, max rel "
+              f"err {rep.max_rel_err:.3e}; card {info['nvidia_smi']}")
+    print(f"[main C] report: pooled spearman {out_c['pooled_rank_corr']} "
+          f"over {out_c['n_rank_points']} points; card {info['nvidia_smi']}")
     print(f"[smoke] all phases passed in {time.monotonic() - t0:.1f} s",
           flush=True)
+    print(info["nvidia_smi"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["kind"], "count": info["count"]}}))

@@ -25,8 +25,8 @@ them executes a kernel. This module closes that loop:
          no predicted cycles and are excluded from the rank statistic, but
          are still timed and numerics-checked;
        * the SSD intra-chunk pair (scores + y_intra) -> one fused
-         `ssd_scan` op. Its kernel is not ported yet: running such an op
-         raises (ROADMAP B.3).
+         `kernels/ssd_scan` op, run on one (Q, N, P) cell as in the
+         reference; the count scales it to the plan's instances.
 
      Plan order is stream order, i.e. schedule order — each op is annotated
      with the segment that will execute it (`Schedule.stage_segment_ids`).
@@ -39,17 +39,19 @@ them executes a kernel. This module closes that loop:
      ``path`` that ran: "cuda" when its kernel's launch counter moved,
      "plain" otherwise.
   3. **Validation.** Every kernel output is checked against its package's
-     ``ref.py`` oracle (`quantized_matmul_and_ref`, `attention_ref`), and
-     measured time is *ranked* against predicted cycles (`spearman`) — the
+     ``ref.py`` oracle (`quantized_matmul_and_ref`, `attention_ref`,
+     `ssd_intra_chunk_and_ref`), and measured time is *ranked* against
+     predicted cycles (`spearman`) — the
      Fig. 4(a) discipline, model-vs-execution. Absolute agreement is not
      expected (GPU milliseconds are not CIM cycles); monotonicity is: a
      layer the model calls heavier should measure heavier.
 
 Entry points: ``execute_model`` (extract -> optimize -> lower -> execute),
-``lower_plan`` / ``execute_plan`` for pre-solved results, and
-`repro_torch/serve_lm.py` for the served decode step. Solver pools must
-start before the first CUDA call (forking after CUDA initialises breaks
-the children), so torch work stays inside the runners.
+``lower_plan`` / ``execute_plan`` for pre-solved results,
+`repro_torch/serve_lm.py` for one served step and `repro_torch/exec_lm.py`
+for the execution-sized zoo. Solver pools must start before the first
+CUDA call (forking after CUDA initialises breaks the children), so torch
+work stays inside the runners.
 """
 
 from __future__ import annotations
@@ -380,8 +382,26 @@ def _run_flash(op: ExecOp, gen, device, warmup: int,
 
 def _run_ssd(op: ExecOp, gen, device, warmup: int,
              repeats: int) -> tuple[float, float, str]:
-    raise NotImplementedError(
-        f"{op.name}: the ssd_scan kernel is not ported yet (ROADMAP B.3)")
+    import torch
+    from repro_torch.kernels.ssd_scan import kernel
+    from repro_torch.kernels.ssd_scan.ops import (ssd_intra_chunk,
+                                                  ssd_intra_chunk_and_ref)
+    s = op.spec
+    q, n, p = s["q"], s["n"], s["p"]
+    uniform = lambda lo, hi, shape: lo + (hi - lo) * torch.rand(
+        shape, generator=gen, device=device)
+    c = torch.randn((1, 1, q, 1, n), generator=gen, device=device)
+    b = torch.randn((1, 1, q, 1, n), generator=gen, device=device)
+    dt = uniform(0.001, 0.1, (1, 1, q, 1))
+    a = -uniform(0.5, 4.0, (1,))
+    ss = torch.cumsum(dt * a, dim=2)
+    x = torch.randn((1, 1, q, 1, p), generator=gen, device=device)
+    before = kernel.launches
+    out, ref = ssd_intra_chunk_and_ref(c, b, ss, dt, x)
+    path = "cuda" if kernel.launches > before else "plain"
+    t = _time_call(lambda: ssd_intra_chunk(c, b, ss, dt, x), warmup - 1,
+                   repeats, device)
+    return t, _rel_err(out, ref), path
 
 
 _RUNNERS = {"matmul_int8": _run_matmul, "flash_attention": _run_flash,

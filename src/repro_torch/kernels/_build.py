@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Each kernel package keeps its source under ``csrc/<name>.cu`` with a plain
-C interface. ``load(name)`` compiles it with ``nvcc`` into
-``build/repro_torch/<name>-<hash>.so`` at the repository root, keyed by a
-hash of the source and the flags, so an unchanged source builds once per
-checkout; ``build_all`` starts one ``nvcc`` per source at once. Nothing
-here runs at import time: the CPU tests import every module.
+Three kernels, one package each (``SOURCES``): matmul_int8,
+flash_attention and ssd_scan. Each package keeps its source under
+``csrc/<name>.cu`` with a plain C interface. ``load(name)`` compiles it
+with ``nvcc`` into ``build/repro_torch/<name>-<hash>.so`` at the
+repository root, keyed by a hash of the source and the flags, so an
+unchanged source builds once per checkout; ``build_all`` starts one
+``nvcc`` per source at once. Nothing here runs at import time: the CPU
+tests import every module.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: Kernel name -> its package (``kernels/<package>/csrc/<name>.cu``).
-SOURCES = {"matmul_int8": "matmul_int8", "flash_attention": "flash_attention"}
+SOURCES = {"matmul_int8": "matmul_int8", "flash_attention": "flash_attention",
+           "ssd_scan": "ssd_scan"}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -1,22 +1,26 @@
-"""Executed decode step on the card: the optimized CIM dataflow plan of one
-served model, run on the port's CUDA kernels.
+"""Executed serving step on the card: the optimized CIM dataflow plan of
+one served model under one registry scenario (``--shape``), run on the
+port's CUDA kernels.
 
 The counterpart of the reference's executed decode in
 ``examples/serve_lm.py`` (``report_cim_dataflow``) and of
-``benchmarks/exec_lm.py``. It lowers the served step to its weight-GEMM
-workload, solves it with the MIREDO optimizer (cached under
-``MIREDO_CACHE``), lowers the result to an execution plan, and runs every
-op on its kernel: each weight GEMM on matmul_int8 with blocks derived from
-its optimized mapping, the decode attention step on flash_attention. Every
-output is checked against its oracle, and measured times are ranked
-against predicted cycles.
+``benchmarks/exec_lm.py`` (whose zoo is `repro_torch/exec_lm.py`). It
+lowers the served step (a decode step, or the prompt pass of a prefill
+scenario) to its workload, solves it with the MIREDO optimizer (cached
+under ``MIREDO_CACHE``), lowers the result to an execution plan, and runs
+every op on its kernel: each weight GEMM on matmul_int8 with blocks
+derived from its optimized mapping, attention on flash_attention, the
+fused SSD intra-chunk pair on ssd_scan. Every output is checked against
+its oracle, and measured times are ranked against predicted cycles.
 
     PYTHONPATH=src python -m repro_torch.serve_lm --arch glm4-9b --shape decode_32k
+    PYTHONPATH=src python -m repro_torch.serve_lm --arch mamba2-1.3b --shape prefill_32k
 
-Without a CUDA device the default ``--device cuda`` fails before solving;
-``--device cpu --reduced`` runs the plain versions at reduced widths. The
-solve runs before the first CUDA call, and torch is imported only after
-the arguments are parsed.
+The second is the prompt pass of 32 sequences of 32k tokens through
+mamba2-1.3b at its published widths. Without a CUDA device the default
+``--device cuda`` fails before solving; ``--device cpu --reduced`` runs
+the plain versions at reduced widths. The solve runs before the first
+CUDA call, and torch is imported only after the arguments are parsed.
 """
 
 from __future__ import annotations

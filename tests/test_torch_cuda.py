@@ -114,6 +114,99 @@ def test_flash_attention_kernel_vs_plain(cuda, b, lq, lk, h, hd, causal,
     assert rel <= 2e-3
 
 
+@pytest.mark.parametrize("m,k,n", [(128, 1, 64), (1, 128, 64),
+                                   (16, 1, 64), (1, 1, 1)])
+def test_matmul_int8_k1_m1_exact(cuda, m, k, n):
+    """The plans' K = 1 (SSD state update) and M = 1 (readout, LM head)
+    shapes take the kernel's masked scalar loads: integer-exact for every
+    tile of the set."""
+    from repro_torch.kernels.matmul_int8 import kernel
+    from repro_torch.kernels.matmul_int8.ref import matmul_int8_ref
+    g = _gen(4)
+    x = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=cuda,
+                      generator=g)
+    w = torch.randint(-127, 128, (k, n), dtype=torch.int8, device=cuda,
+                      generator=g)
+    ones_m, ones_n = torch.ones(m, device=cuda), torch.ones(n, device=cuda)
+    ref = matmul_int8_ref(x, w, ones_m, ones_n, torch.float32)
+    for bm in kernel.BM_TILES:
+        for bn in kernel.BN_TILES:
+            for bk in kernel.BK_TILES:
+                out = kernel.matmul_int8(x, w, ones_m, ones_n, bm=bm, bk=bk,
+                                         bn=bn, out_dtype=torch.float32)
+                assert torch.equal(out, ref), (bm, bk, bn)
+
+
+def _ssd_inputs(shape, dtype, g):
+    b, nc, q, h, n, p = shape
+    c = torch.randn((b, nc, q, h, n), device="cuda", generator=g)
+    bb = torch.randn((b, nc, q, h, n), device="cuda", generator=g)
+    dt = 0.001 + 0.099 * torch.rand((b, nc, q, h), device="cuda",
+                                    generator=g)
+    a = -(0.5 + 3.5 * torch.rand((h,), device="cuda", generator=g))
+    s = torch.cumsum(dt * a, dim=2)
+    x = torch.randn((b, nc, q, h, p), device="cuda", generator=g)
+    return [t.to(dtype) for t in (c, bb, s, dt, x)]
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 1, 256, 1, 128, 64), (1, 1, 64, 1, 128, 64), (1, 1, 24, 1, 8, 8),
+    (2, 2, 24, 2, 16, 16), (1, 3, 100, 4, 33, 17), (1, 2, 256, 4, 128, 128),
+    (2, 1, 130, 3, 1, 1)], ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_kernel_vs_plain(cuda, shape, dtype):
+    """Kernel vs the oracle at the executor's SSD tolerance (2e-3): the
+    executor's one-cell ops (Q = 256, 64), odd Q, ragged N and P, and
+    several cells read in place from the (B, NC, Q, H, .) layout."""
+    from repro_torch.kernels.ssd_scan import kernel
+    from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
+    from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
+    dt_ = getattr(torch, dtype)
+    args = _ssd_inputs(shape, dt_, _gen(5))
+    before = kernel.launches
+    out = ssd_intra_chunk(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert out.dtype == dt_ and out.shape == args[4].shape
+    ref = ssd_intra_chunk_ref(*args)
+    rel = (out.double() - ref.double()).norm() / ref.double().norm()
+    assert rel <= 2e-3
+
+
+def test_ssd_scan_flattened_and_strided_views(cuda):
+    """The reference's flattened (BCH, Q, .) entry point, and a
+    non-contiguous (B, NC, Q, H, .) view, agree with the oracle."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_intra_chunk_bh
+    from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
+    from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
+    b, nc, q, h, n, p = 2, 3, 80, 2, 32, 24
+    c, bb, s, dt, x = _ssd_inputs((b, nc, q, h, n, p), torch.float32,
+                                  _gen(6))
+    ref = ssd_intra_chunk_ref(c, bb, s, dt, x)
+    f5 = lambda t: t.permute(0, 1, 3, 2, 4).reshape(b * nc * h, q, -1)
+    f4 = lambda t: t.permute(0, 1, 3, 2).reshape(b * nc * h, q)
+    out = ssd_intra_chunk_bh(f5(c), f5(bb), f4(s), f4(dt), f5(x))
+    torch.cuda.synchronize()
+    assert (out - f5(ref)).abs().max() <= 2e-3 * ref.abs().max()
+    # every other chunk: strided along NC, the kernel reads in place
+    view = lambda t: t[:, ::2]
+    out = ssd_intra_chunk(*(view(t) for t in (c, bb, s, dt, x)))
+    ref = ssd_intra_chunk_ref(*(view(t) for t in (c, bb, s, dt, x)))
+    rel = (out.double() - ref.double()).norm() / ref.double().norm()
+    assert rel <= 2e-3
+
+
+def test_executor_reduced_ssd_plan_runs_on_kernels(cuda, tmp_path,
+                                                   monkeypatch):
+    from repro_torch import serve_lm
+    monkeypatch.setenv("MIREDO_CACHE", str(tmp_path))
+    rep = serve_lm.main(["--reduced", "--mode", "greedy", "--arch",
+                         "mamba2-1.3b", "--shape", "prefill_32k"])
+    assert rep.numerics_ok
+    assert {op.path for op in rep.plan.ops} == {"cuda"}
+    assert "ssd_scan" in {op.kernel for op in rep.plan.ops}
+
+
 def test_executor_reduced_plan_runs_on_kernels(cuda, tmp_path, monkeypatch):
     from repro_torch import serve_lm
     monkeypatch.setenv("MIREDO_CACHE", str(tmp_path))

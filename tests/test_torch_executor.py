@@ -3,6 +3,7 @@ against the reference's: the same plans from the same solves, and the
 reduced slice executed on the CPU through the kernels' plain versions
 (greedy solve mode — no MIP wall-clock in tier-1)."""
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -123,12 +124,47 @@ def test_default_device_without_cuda_raises(glm_decode, monkeypatch):
         execute_model(get_config("glm4-9b").reduced(), DECODE)
 
 
-def test_ssd_ops_lower_but_do_not_run_yet():
-    plan, _ = _plans("mamba2-1.3b", PREFILL)
+def test_execute_plan_cpu_reduced_mamba2_prefill():
+    """The SSD plan on the CPU: every fused ssd_scan op runs the plain
+    version within the oracle's tolerance, as do the GEMMs around it, with
+    as many rank points as the reference's run of the same plan."""
+    plan, ref = _plans("mamba2-1.3b", PREFILL)
+    rep = execute_plan(plan, device="cpu", seed=0)
     ssd = [op for op in plan.ops if op.kernel == "ssd_scan"]
-    assert ssd
-    with pytest.raises(NotImplementedError, match="B.3"):
-        execute_plan(plan, device="cpu")
+    assert ssd and {op.path for op in ssd} == {"plain"}
+    assert all(op.numerics_ok and op.measured_s > 0 for op in ssd)
+    assert rep.numerics_ok
+    assert {op.kernel for op in plan.ops} == {"matmul_int8", "ssd_scan"}
+    rref = ref_executor.execute_plan(ref, interpret=True, seed=0)
+    assert rref.numerics_ok
+    assert len(rep.rank_points()) == len(rref.rank_points())
+
+
+@pytest.mark.parametrize("q,n,p", [(256, 128, 64), (64, 128, 64),
+                                   (24, 16, 16)])
+def test_ssd_operands_of_reference_runner_agree(q, n, p):
+    """The reference `_run_ssd`'s operands, built with numpy as it builds
+    them, through both packages' `ssd_intra_chunk_and_ref`: the port's
+    kernel output and oracle within the executor's 2e-3 of the
+    reference's."""
+    import jax.numpy as jnp
+    from repro.kernels.ssd_scan.ops import ssd_intra_chunk_and_ref as jpair
+    from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk_and_ref
+    rng = np.random.default_rng([0, q])
+    c = rng.standard_normal((1, 1, q, 1, n)).astype(np.float32)
+    b = rng.standard_normal((1, 1, q, 1, n)).astype(np.float32)
+    dt = rng.uniform(0.001, 0.1, (1, 1, q, 1)).astype(np.float32)
+    a = -rng.uniform(0.5, 4.0, (1,)).astype(np.float32)
+    ss = np.array(jnp.cumsum(jnp.asarray(dt * a), axis=2))
+    x = rng.standard_normal((1, 1, q, 1, p)).astype(np.float32)
+    args = (c, b, ss, dt, x)
+    out, ref = ssd_intra_chunk_and_ref(*map(torch.from_numpy, args))
+    jout, jref = jpair(*map(jnp.asarray, args), interpret=True)
+    tol = NUMERICS_TOL["ssd_scan"]
+    rel = lambda u, v: float(np.linalg.norm(u - v) / np.linalg.norm(v))
+    assert rel(out.numpy(), np.asarray(jout)) <= tol
+    assert rel(ref.numpy(), np.asarray(jref)) <= tol
+    assert rel(out.numpy(), ref.numpy()) <= tol
 
 
 def test_serve_lm_cpu_reduced(tmp_path, monkeypatch, capsys):

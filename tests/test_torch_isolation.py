@@ -1,6 +1,7 @@
 """The port stands alone: nothing under `src/repro_torch/`, nor
-`chip_smoke.py`, imports JAX or the JAX package, and the reduced slice
-runs in a process where neither can be imported."""
+`chip_smoke.py`, imports JAX, the JAX package or its benchmarks, and the
+reduced slices (`serve_lm`, and `exec_lm` over mamba2-1.3b) run in a
+process where none of them can be imported."""
 
 import ast
 import os
@@ -14,7 +15,7 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _port_files():
@@ -55,14 +56,20 @@ def test_slice_runs_with_jax_and_reference_blocked(tmp_path):
     code = (
         "import sys\n"
         "sys.modules['jax'] = sys.modules['repro'] = None\n"
-        "from repro_torch import serve_lm\n"
+        "sys.modules['benchmarks'] = None\n"
+        "from repro_torch import exec_lm, serve_lm\n"
         "rep = serve_lm.main(['--reduced', '--device', 'cpu', '--mode', "
         "'greedy'])\n"
         "assert rep.numerics_ok and rep.n_ops == 8\n"
-        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
+        "out = exec_lm.run(reduced=True, device='cpu', mode='greedy',\n"
+        "                  archs=('mamba2-1.3b',), repeats=1)\n"
+        "assert all(r['numerics_ok'] for r in out['rows'])\n"
+        "assert 'ssd_scan' in out['kernels']\n"
+        "assert not any(m.split('.')[0] in ('jax', 'repro', 'benchmarks')\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ISOLATED-OK')\n")
     env = dict(os.environ, MIREDO_CACHE=str(tmp_path),
+               MIREDO_REPORTS=str(tmp_path / "reports"),
                PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
                          capture_output=True, text=True, timeout=300)
