@@ -9,7 +9,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      CUDA versions;
   2. build — the three CUDA kernels from the sources in the checkout, one
      ``nvcc`` per source, started together; registers, shared memory and
-     spills of every instantiation (``-Xptxas -v``);
+     spills of every instantiation (``-Xptxas -v``); every flash_attention
+     launch's shared memory, as the library reports it, against
+     ``kernel.smem_bytes``; the decode kernel's registers and resident
+     CTAs per SM (the CUDA occupancy API);
   3. main paths, each with a cold solve cache and every launch counter
      zeroed just before it and read just after; every op must run on its
      kernel (``path == "cuda"``) and pass its oracle:
@@ -25,8 +28,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      the same inputs on the card: matmul_int8 integer-exact with unit
      scales at K <= 1024 and at K = 1 and M = 1 for every tile, then at
      every shape and block of paths A and B; flash_attention in causal
-     prefill (L = 1024, 4096), bidirectional, L = 264 and path A's decode
-     step, in float32 and bfloat16; ssd_scan at every one-cell shape the
+     prefill (L = 1024, 4096), bidirectional, L = 264, path A's decode
+     step and path C's minicpm-2b decode step (the two decode steps at
+     every block_k, with achieved GB/s beside the bound), in float32 and
+     bfloat16; ssd_scan at every one-cell shape the
      plans run, at odd Q = 24 and at the full grid of one mamba2-1.3b
      ``prefill_32k`` layer for one sequence, in float32 and bfloat16.
      Each is timed (CUDA events, L2 flushed before every launch, median)
@@ -127,7 +132,7 @@ def phase_device(torch) -> dict:
     return info
 
 
-def phase_build() -> None:
+def phase_build(torch) -> None:
     from repro_torch.kernels import _build
     t0 = time.monotonic()
     _build.build_all()
@@ -156,6 +161,26 @@ def phase_build() -> None:
                  for bq in fa_kernel.BQ_TILES for bk in fa_kernel.BK_TILES}
         print(f"[build] flash_attention dynamic smem bytes at hd=128, {dt} "
               f"(bq x bk): {sizes}")
+        # what each launch really passes, from the library itself
+        for bq in fa_kernel.BQ_TILES:
+            for bk in fa_kernel.BK_TILES:
+                for hd in (8, 64, 100, 128):
+                    got = fa_kernel.occupancy(bq, bk, hd, getattr(torch, dt))
+                    want = fa_kernel.smem_bytes(bq, bk, hd, el)
+                    require(got["smem_bytes"] == want,
+                            f"flash_attention {(bq, bk, hd, dt)} launches "
+                            f"with {got['smem_bytes']} bytes of shared "
+                            f"memory, kernel.smem_bytes says {want}")
+        for hd in (128, 64):
+            parts = []
+            for bk in fa_kernel.BK_TILES:
+                o = fa_kernel.occupancy(1, bk, hd, getattr(torch, dt))
+                warps = fa_kernel.DECODE_WARPS * o["ctas_per_sm"]
+                parts.append(f"bk {bk}: {o['regs']} registers, "
+                             f"{o['smem_bytes']} B smem, {o['ctas_per_sm']} "
+                             f"resident CTAs ({warps} warps) per SM")
+            print(f"[build] flash decode kernel (bq=1) at hd={hd}, {dt}: "
+                  + "; ".join(parts), flush=True)
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     sizes = {f"{n}x{p}": ssd_kernel.smem_bytes(n, p)
              for n, p in ((8, 8), (128, 64), (128, 128))}
@@ -366,27 +391,42 @@ def _matmul_plan_rows(torch, label, plan, timer, g) -> list[dict]:
 def flash_rows(torch, plan, timer) -> list[dict]:
     import torch.nn.functional as F
     from repro_torch.core.executor import NUMERICS_TOL
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
-    # (plan op or None, count in the plan, (b, lq, lk, h, hd, causal,
-    # dtype, block_q, block_k)); the executor runs float32, so the
-    # bfloat16 twin of a plan op counts no launches of the main path
+    # (plan op or None, count in the plan, name, (b, lq, lk, h, hd,
+    # causal, dtype, block_q, block_k)); the executor runs float32 at the
+    # bridge's blocks, so only that row of a plan op counts launches of
+    # the main path. A decode op (block_q = 1) is also run at every
+    # block_k of the set, in both dtypes: the sweep the bridge's decode
+    # pick (`gpu_bridge.DECODE_BLOCK_K`) is read from
     cases = []
     for op, count in unique_ops(plan, "flash_attention"):
         s = op.spec
         shape = (s["b"], s["lq"], s["lk"], s["h"], s["hd"], s["causal"])
-        cases += [(op, count, shape + ("float32", s["bq"], s["bk"])),
-                  (None, 0, shape + ("bfloat16", s["bq"], s["bk"]))]
+        bks = fa_kernel.BK_TILES if s["bq"] == 1 else (s["bk"],)
+        for dt in ("float32", "bfloat16"):
+            for bk in bks:
+                main = dt == "float32" and bk == s["bk"]
+                cases.append((op if main else None, count if main else 0,
+                              op.name if main else f"{op.name} sweep",
+                              shape + (dt, s["bq"], bk)))
     for dt in ("float32", "bfloat16"):
+        # path C's minicpm-2b exec_decode step (16 sequences against a
+        # 256-entry cache, 36 heads of 64), at every block_k
+        cases += [(None, 0, "minicpm-2b exec_decode",
+                   (16, 1, 256, 36, 64, False, dt, 1, bk))
+                  for bk in fa_kernel.BK_TILES]
         # (b, lq, lk, h, hd, causal, dtype, block_q, block_k)
-        cases += [(None, 0, (1, 1024, 1024, 32, 128, True, dt, 64, 64)),
-                  (None, 0, (1, 4096, 4096, 32, 128, True, dt, 64, 64)),
-                  (None, 0, (1, 1024, 1024, 32, 128, False, dt, 64, 64)),
-                  (None, 0, (2, 264, 264, 8, 128, True, dt, 64, 128))]
+        cases += [(None, 0, "mode", shape) for shape in (
+            (1, 1024, 1024, 32, 128, True, dt, 64, 64),
+            (1, 4096, 4096, 32, 128, True, dt, 64, 64),
+            (1, 1024, 1024, 32, 128, False, dt, 64, 64),
+            (2, 264, 264, 8, 128, True, dt, 64, 128))]
     rows = []
-    for op, count, (b, lq, lk, h, hd, causal, dt, bq, bk) in cases:
+    for op, count, name, (b, lq, lk, h, hd, causal, dt, bq, bk) in cases:
         dtype = getattr(torch, dt)
         mk = lambda l: torch.randn((b, l, h, hd), device="cuda",
                                    generator=g).to(dtype)
@@ -400,7 +440,6 @@ def flash_rows(torch, plan, timer) -> list[dict]:
         out, ref = kern(), plain()
         rel = float((out.double() - ref.double()).norm() /
                     ref.double().norm())
-        name = op.name if op is not None else "mode"
         require(bool(torch.isfinite(out).all()) and out.shape == q.shape,
                 f"flash {name} finite, shaped")
         require(rel <= NUMERICS_TOL["flash_attention"],
@@ -408,15 +447,17 @@ def flash_rows(torch, plan, timer) -> list[dict]:
         el = 4 if dt == "float32" else 2
         pairs = (sum(min(i + 1, lk) for i in range(lq)) if causal
                  else lq * lk)
-        b_ms, b_by = bound_ms(el * (2 * b * lq * h * hd + 2 * b * lk * h * hd),
-                              4.0 * b * h * pairs * hd, dt)
+        n_bytes = el * (2 * b * lq * h * hd + 2 * b * lk * h * hd)
+        b_ms, b_by = bound_ms(n_bytes, 4.0 * b * h * pairs * hd, dt)
+        ms = timer(kern)
         row = {"path": "A" if op is not None else None, "op": name,
                "b": b, "lq": lq, "lk": lk, "h": h, "hd": hd,
                "causal": causal, "dtype": dt, "blocks": (bq, bk),
                "count": count, "rel_err": rel,
                "max_abs_err": float((out.float() - ref.float()).abs().max()),
-               "ms": timer(kern), "plain_ms": timer(plain),
+               "ms": ms, "plain_ms": timer(plain),
                "library_ms": timer(lib), "bound_ms": b_ms, "bound_by": b_by,
+               "gb_s": n_bytes / ms / 1e6, "bound_gb_s": HBM_BYTES_S / 1e9,
                "op_ms": op.measured_s * 1e3 if op is not None else None}
         rows.append(row)
         print(f"[flash_attention] {json.dumps(row)}", flush=True)
@@ -543,7 +584,7 @@ def main() -> int:
     t0 = time.monotonic()
 
     info = phase_device(torch)
-    phase_build()
+    phase_build(torch)
     rep_a, launch_a = phase_path_a(torch)
     rep_b, launch_b = phase_path_b(torch)
     out_c, launch_c = phase_path_c(torch)

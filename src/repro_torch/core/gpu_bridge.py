@@ -108,19 +108,49 @@ def select_blocks_from_mapping(mapping, layer, arch, *,
     return bm, bk, bn
 
 
+#: block_k of a decode step (seq_q = 1) by the operands' bytes per element:
+#: the bk that measured fastest on path A's decode shape (glm4-9b
+#: decode_32k: b 128, Lk 512, 32 heads of 128) in `chip_smoke.py`'s bk
+#: sweep, in both of two runs on an NVIDIA H100 80GB HBM3 at 700 W (ms per
+#: call, run 1 / run 2; PERF.md, Findings):
+#:   float32   bk 32: 0.7263 / 0.7170, bk 64: 0.7321 / 0.7153,
+#:             bk 128: 0.7210 / 0.7069;
+#:   bfloat16  bk 32: 0.4162 / 0.4138, bk 64: 0.3786 / 0.3702,
+#:             bk 128: 0.3852 / 0.3780.
+DECODE_BLOCK_K = {4: 128, 2: 64}
+
+
 def select_flash_blocks(seq_q: int, seq_k: int, head_dim: int, *,
                         bytes_el: int = 4,
                         smem_bytes: int | None = None) -> tuple[int, int]:
-    """(block_q, block_k) from the kernel's tile set with the fewest
-    (q-tile, KV-tile) steps whose shared memory times the stage count fits
-    one CTA — the degenerate (single-level) instance of eq. 9, counting K
-    and V in ``bytes_el`` bytes, the dtype the kernel is given. Ties go to
-    the least masked tail, so a decode step (seq_q = 1) takes block_q = 1.
+    """(block_q, block_k) for the flash_attention kernels.
+
+    Decode (seq_q = 1) takes block_q = 1, the decode kernel, at
+    ``DECODE_BLOCK_K[bytes_el]`` whatever seq_k and head_dim. That kernel
+    stages no K or V tile, so the TPU's fewest-steps objective says nothing
+    there: bk only sets how many keys each warp keeps in flight (bk / 16)
+    against how many CTAs fit an SM, and the rule is the measured fastest.
+
+    Prefill takes the tiled kernel's tile with the fewest (q-tile,
+    KV-tile) steps whose shared memory times the stage count fits one CTA
+    — the degenerate (single-level) instance of eq. 9, counting K and V in
+    ``bytes_el`` bytes, the dtype the kernel is given; ties go to the
+    least masked tail.
     """
     if not 1 <= head_dim <= flash_kernel.MAX_HEAD_DIM:
         raise ValueError(f"head dim {head_dim} outside the kernel's "
                          f"1..{flash_kernel.MAX_HEAD_DIM}")
     budget = device_smem_bytes() if smem_bytes is None else smem_bytes
+    if seq_q == 1:
+        if bytes_el not in DECODE_BLOCK_K:
+            raise ValueError(f"the decode kernel takes 4- or 2-byte "
+                             f"operands, not {bytes_el}")
+        bk = DECODE_BLOCK_K[bytes_el]
+        need = flash_kernel.smem_bytes(1, bk, head_dim, bytes_el)
+        if need > budget:
+            raise ValueError(f"the decode kernel's {need} bytes of shared "
+                             f"memory exceed {budget}")
+        return 1, bk
     best, best_key = None, None
     for bq in flash_kernel.BQ_TILES:
         for bk in flash_kernel.BK_TILES:

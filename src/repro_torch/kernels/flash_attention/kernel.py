@@ -14,21 +14,34 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
+#: block_q = 1 runs the decode kernel (one query row per CTA, K and V
+#: streamed through registers); 16, 32 and 64 the tiled kernel.
 BQ_TILES = (1, 16, 32, 64)
+#: In the tiled kernel the KV tile's rows. In the decode kernel a warp's
+#: chunk is bk / 32 keys and each warp keeps two chunks in flight, so a
+#: CTA has bk / 4 keys in flight.
 BK_TILES = (32, 64, 128)
-MAX_HEAD_DIM = 128          # one thread per output column, 128 threads
-#: Shared-memory buffers per KV tile: the kernel loads, then computes (no
-#: software pipeline yet).
+#: Tiled: one thread per output column of 128 threads; decode: four
+#: columns per lane of a 32-lane warp.
+MAX_HEAD_DIM = 128
+#: Shared-memory buffers per KV tile of the tiled kernel: it loads, then
+#: computes (no software pipeline). The decode kernel stages no K or V in
+#: shared memory; its prefetch of the next chunk is in registers.
 STAGES = 1
+#: Warps of the decode kernel's CTA, each on its own share of the keys.
+DECODE_WARPS = 4
 
 #: Kernel launches so far (the plain version on CPU tensors is not one).
 launches = 0
 
 
 def smem_bytes(bq: int, bk: int, head_dim: int, bytes_el: int) -> int:
-    """Dynamic shared memory of one CTA: the f32 q tile, scores and row
-    statistics, and the K (rows padded by one 32-bit word) and V tiles in
-    the input type."""
+    """Dynamic shared memory of one CTA. Tiled (bq >= 16): the f32 q tile,
+    scores and row statistics, and the K (rows padded by one 32-bit word)
+    and V tiles in the input type. Decode (bq = 1): only each warp's f32
+    accumulator, max and sum for the final merge, whatever bk and dtype."""
+    if bq == 1:
+        return 4 * DECODE_WARPS * (head_dim + 2)
     return 4 * (bq * head_dim + bq * bk + 3 * bq) + \
         bytes_el * (bk * (head_dim + 4 // bytes_el) + bk * head_dim)
 
@@ -39,6 +52,25 @@ def _launcher():
         [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def occupancy(bq: int, bk: int, head_dim: int,
+              dtype: torch.dtype) -> dict[str, int]:
+    """What the card runs one (bq, bk, head_dim, dtype) launch with:
+    registers per thread, shared memory per CTA (static plus the dynamic
+    bytes the launch passes) and resident CTAs per SM, from the CUDA
+    runtime. Needs the card."""
+    fn = _build.load("flash_attention").flash_attention_occupancy
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    ctas, regs, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = fn(bq, bk, head_dim, int(dtype == torch.bfloat16),
+             ctypes.byref(ctas), ctypes.byref(regs), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"flash_attention occupancy query failed: CUDA "
+                           f"error {err}")
+    return {"ctas_per_sm": ctas.value, "regs": regs.value,
+            "smem_bytes": smem.value}
 
 
 def flash_attention_blhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

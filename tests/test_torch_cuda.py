@@ -213,3 +213,99 @@ def test_executor_reduced_plan_runs_on_kernels(cuda, tmp_path, monkeypatch):
     rep = serve_lm.main(["--reduced", "--mode", "greedy"])
     assert rep.numerics_ok
     assert {op.path for op in rep.plan.ops} == {"cuda"}
+
+
+def _decode_case(b, lq, lk, h, hd, dtype, seed, q_scale=1.0):
+    g = _gen(seed)
+    mk = lambda l: torch.randn((b, l, h, hd), device="cuda", generator=g)
+    q = (mk(lq) * q_scale).to(dtype)
+    return q, mk(lk).to(dtype), mk(lk).to(dtype)
+
+
+def _decode_check(q, k, v, causal):
+    """The decode kernel (block_q = 1) at every block_k of the set: one
+    launch per call, the input dtype out, within the executor's attention
+    tolerance (2e-3) of the oracle."""
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    ref = attention_ref(q, k, v, causal=causal)
+    for bk in kernel.BK_TILES:
+        before = kernel.launches
+        out = kernel.flash_attention_blhd(q, k, v, causal=causal,
+                                          block_q=1, block_k=bk)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert out.dtype == q.dtype and out.shape == q.shape
+        assert bool(torch.isfinite(out).all()), bk
+        rel = (out.double() - ref.double()).norm() / ref.double().norm()
+        assert rel <= 2e-3, (bk, float(rel))
+
+
+@pytest.mark.parametrize("lk", [1, 3, 7, 33, 511, 512, 513])
+@pytest.mark.parametrize("hd", [8, 16, 64, 100, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_kernel_lengths_and_head_dims(cuda, lk, hd, dtype):
+    """Caches shorter than a chunk per warp (Lk = 1, 3: warps with no key),
+    ragged tails, and head dims that leave lanes without a column."""
+    q, k, v = _decode_case(2, 1, lk, 3, hd, getattr(torch, dtype), 7)
+    _decode_check(q, k, v, causal=False)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_kernel_path_a_shape(cuda, dtype):
+    """glm4-9b decode_32k's attention step (b 128, Lk 512, 32 heads of 128)
+    with only b cut, to 8."""
+    q, k, v = _decode_case(8, 1, 512, 32, 128, getattr(torch, dtype), 8)
+    _decode_check(q, k, v, causal=False)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_kernel_causal_rows(cuda, dtype):
+    """block_q = 1 over Lq = 17 causal rows: row 0 sees one key, so three
+    warps of its CTA see none; later rows stop mid-chunk."""
+    q, k, v = _decode_case(2, 17, 17, 2, 64, getattr(torch, dtype), 9)
+    _decode_check(q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_kernel_large_scores(cuda, dtype):
+    """q scaled by 30: scores far apart, so each warp's max differs and the
+    cross-warp merge decides the result."""
+    q, k, v = _decode_case(4, 1, 512, 4, 128, getattr(torch, dtype), 10,
+                           q_scale=30.0)
+    _decode_check(q, k, v, causal=False)
+
+
+@pytest.mark.parametrize("offset_bytes", [1, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_kernel_misaligned_views(cuda, offset_bytes, dtype):
+    """Contiguous views that start off a 16-byte boundary, 1 and 8 bytes
+    in (1 byte rounds up to one element, the smallest offset a float32 or
+    bfloat16 view can have). Off its vector's alignment (16 bytes in
+    float32, 8 in bfloat16) the kernel must take its masked scalar loads,
+    not fault; a bfloat16 view 8 bytes in keeps the vector loads."""
+    dt = getattr(torch, dtype)
+    el = torch.tensor([], dtype=dt).element_size()
+    off = max(offset_bytes, el) // el
+    b, lk, h, hd = 2, 100, 3, 64
+    g = _gen(11)
+    view = lambda l: torch.randn((off + b * l * h * hd,), device=cuda,
+                                 generator=g).to(dt)[off:].view(b, l, h, hd)
+    q, k, v = view(1), view(lk), view(lk)
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    _decode_check(q, k, v, causal=False)
+
+
+def test_flash_smem_bytes_match_the_launch(cuda):
+    """`kernel.smem_bytes` is what every launch of the tile set passes
+    (static plus dynamic shared memory, as the CUDA runtime reports it),
+    and the card can hold at least one CTA of each."""
+    from repro_torch.kernels.flash_attention import kernel
+    for dt, el in ((torch.float32, 4), (torch.bfloat16, 2)):
+        for bq in kernel.BQ_TILES:
+            for bk in kernel.BK_TILES:
+                for hd in (8, 64, 100, 128):
+                    occ = kernel.occupancy(bq, bk, hd, dt)
+                    assert occ["smem_bytes"] == \
+                        kernel.smem_bytes(bq, bk, hd, el), (bq, bk, hd, dt)
+                    assert occ["ctas_per_sm"] >= 1 and occ["regs"] > 0

@@ -14,7 +14,8 @@ from repro_torch.core.arch import default_arch
 from repro_torch.core.baselines import greedy_mapping
 from repro_torch.core.executor import EXEC_BLOCK_CAP
 from repro_torch.core.frontend import extract_workload
-from repro_torch.core.gpu_bridge import (SMEM_BYTES, device_smem_bytes,
+from repro_torch.core.gpu_bridge import (DECODE_BLOCK_K, SMEM_BYTES,
+                                         device_smem_bytes,
                                          select_blocks_from_mapping,
                                          select_flash_blocks)
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -89,14 +90,39 @@ def test_flash_blocks_fit(lq, lk, hd, bytes_el):
         assert bq == 1                   # decode wastes no query rows
 
 
-def test_flash_blocks_count_the_dtype():
-    """f32 K/V tiles take twice the bytes of bf16 ones, so a budget that
-    holds the bf16 pick must not hold it in f32."""
-    bf16 = select_flash_blocks(1, 512, 128, bytes_el=2)
-    need = fa_kernel.smem_bytes(*bf16, 128, 2)
-    f32 = select_flash_blocks(1, 512, 128, bytes_el=4, smem_bytes=need)
-    assert fa_kernel.smem_bytes(*f32, 128, 4) <= need
-    assert f32 != bf16
+@pytest.mark.parametrize("lk,hd,bytes_el", [
+    (512, 128, 4), (512, 128, 2), (256, 64, 4), (1, 8, 2), (4096, 100, 4)])
+def test_flash_decode_pick_is_the_measured_rule(lk, hd, bytes_el):
+    """A decode step (seq_q = 1) runs the decode kernel at the block_k
+    measured fastest for its dtype (``DECODE_BLOCK_K``), whatever the
+    cache length and head dim. Its CTA stages no K or V, so its shared
+    memory is the merge's few KB, the same in float32 and bfloat16; a
+    budget below that is refused."""
+    bk = DECODE_BLOCK_K[bytes_el]
+    assert bk in fa_kernel.BK_TILES
+    assert select_flash_blocks(1, lk, hd, bytes_el=bytes_el) == (1, bk)
+    need = fa_kernel.smem_bytes(1, bk, hd, bytes_el)
+    assert need == fa_kernel.smem_bytes(1, bk, hd, 6 - bytes_el)
+    assert need <= 4 * 1024
+    assert select_flash_blocks(1, lk, hd, bytes_el=bytes_el,
+                               smem_bytes=need) == (1, bk)
+    with pytest.raises(ValueError, match="decode kernel"):
+        select_flash_blocks(1, lk, hd, bytes_el=bytes_el,
+                            smem_bytes=need - 1)
+
+
+def test_flash_decode_pick_rejects_other_widths():
+    with pytest.raises(ValueError, match="decode kernel"):
+        select_flash_blocks(1, 512, 128, bytes_el=1)
+
+
+@pytest.mark.parametrize("lq,lk,hd,bytes_el,blocks", [
+    (512, 512, 64, 4, (64, 128)), (264, 264, 16, 4, (64, 128)),
+    (4096, 4096, 128, 2, (64, 128)), (17, 17, 64, 4, (32, 32)),
+    (64, 64, 128, 2, (64, 64))])
+def test_flash_prefill_picks_unchanged(lq, lk, hd, bytes_el, blocks):
+    """Prefill keeps the tiled kernel's fewest-steps pick."""
+    assert select_flash_blocks(lq, lk, hd, bytes_el=bytes_el) == blocks
 
 
 def test_flash_blocks_reject_head_dim_past_kernel():
