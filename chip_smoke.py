@@ -9,10 +9,12 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      CUDA versions;
   2. build — the three CUDA kernels from the sources in the checkout, one
      ``nvcc`` per source, started together; registers, shared memory and
-     spills of every instantiation (``-Xptxas -v``); every flash_attention
-     launch's shared memory, as the library reports it, against
-     ``kernel.smem_bytes``; the decode kernel's registers and resident
-     CTAs per SM (the CUDA occupancy API);
+     spills of every instantiation (``-Xptxas -v``; a matmul_int8 spill
+     fails the run); every matmul_int8 and flash_attention launch's shared
+     memory, as the library reports it, against ``kernel.smem_bytes``
+     (times ``STAGES`` for matmul_int8); matmul_int8's threads, registers
+     and resident CTAs per SM at every tile, the decode kernel's registers
+     and resident CTAs per SM (the CUDA occupancy API);
   3. main paths, each with a cold solve cache and every launch counter
      zeroed just before it and read just after; every op must run on its
      kernel (``path == "cuda"``) and pass its oracle:
@@ -26,8 +28,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
         three kernel families and both models' wGrad GEMMs;
   4. kernels vs plain — each kernel against its plain PyTorch version on
      the same inputs on the card: matmul_int8 integer-exact with unit
-     scales at K <= 1024 and at K = 1 and M = 1 for every tile, then at
-     every shape and block of paths A and B; flash_attention in causal
+     scales at K <= 1024 and at K = 1 and M = 1 for every tile, bit-equal
+     under split-K (K ragged across the splits, M = 1, float32 and
+     bfloat16, two calls alike), then at every shape and block of paths A
+     and B with its split, CTAs, achieved GB/s and share of the bound;
+     flash_attention in causal
      prefill (L = 1024, 4096), bidirectional, L = 264, path A's decode
      step and path C's minicpm-2b decode step (the two decode steps at
      every block_k, with achieved GB/s beside the bound), in float32 and
@@ -139,6 +144,7 @@ def phase_build(torch) -> None:
     print(f"[build] {len(_build.SOURCES)} kernels in "
           f"{time.monotonic() - t0:.1f} s", flush=True)
     demangle = shutil.which("c++filt")
+    spills = []
     for name in _build.SOURCES:
         entry = None
         for line in _build.log_path(name).read_text().splitlines():
@@ -148,13 +154,33 @@ def phase_build(torch) -> None:
                     full = subprocess.run(
                         [demangle, entry], capture_output=True, text=True,
                         timeout=60).stdout
-                    found = re.search(r"\w+_kernel<[^>]*>", full)
+                    found = re.search(r"\w+_kernel(<[^>]*>)?", full)
                     entry = found.group(0) if found else entry
             elif "Used" in line and "registers" in line and entry:
                 print(f"[build] {entry}: {line.split(':', 1)[1].strip()}")
             elif "spill" in line and entry and " 0 bytes spill" not in line:
                 print(f"[build] {entry}: {line.strip()}")
+                if name == "matmul_int8":
+                    spills.append(entry)
         _build.load(name)
+    require(not spills, f"matmul_int8 spills registers in {spills}")
+    from repro_torch.kernels.matmul_int8 import kernel as mm_kernel
+    occ = {}
+    for bm in mm_kernel.BM_TILES:
+        for bk in mm_kernel.BK_TILES:
+            for bn in mm_kernel.BN_TILES:
+                o = mm_kernel.occupancy(bm, bk, bn)
+                want = mm_kernel.STAGES * mm_kernel.smem_bytes(bm, bk, bn)
+                require(o["smem_bytes"] == want and o["local_bytes"] == 0,
+                        f"matmul_int8 {(bm, bk, bn)} launches with "
+                        f"{o['smem_bytes']} bytes of shared memory "
+                        f"(STAGES x smem_bytes = {want}) and "
+                        f"{o['local_bytes']} bytes of local memory")
+                occ[f"{bm}x{bk}x{bn}"] = (o["threads"], o["regs"],
+                                          o["ctas_per_sm"])
+    print(f"[build] matmul_int8 (bm x bk x bn): (threads, registers, "
+          f"resident CTAs per SM), no spill, shared memory = STAGES x "
+          f"smem_bytes at every tile: {occ}", flush=True)
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     for dt, el in (("float32", 4), ("bfloat16", 2)):
         sizes = {f"{bq}x{bk}": fa_kernel.smem_bytes(bq, bk, 128, el)
@@ -338,6 +364,46 @@ def matmul_rows(torch, plans, timer) -> list[dict]:
             "matmul_int8 exact on views off a 16-byte boundary")
     print("[matmul_int8] integer-exact on views off a 16-byte boundary",
           flush=True)
+    # split-K: every split the K steps allow among a few, the rule's
+    # included, bit-equal under unit scales (K ragged across the splits,
+    # M = 1) and with real scales in float32 and bfloat16; two calls under
+    # the rule's split give the same bits
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for (m, k, n), (bm, bk, bn) in [((128, 4096 + 24, 256), (128, 128, 128)),
+                                    ((1, 4096 + 24, 256), (16, 128, 128)),
+                                    ((100, 1000, 360), (64, 32, 64))]:
+        x = torch.randint(-127, 128, (m, k), dtype=torch.int8,
+                          device="cuda", generator=g)
+        w = torch.randint(-127, 128, (k, n), dtype=torch.int8,
+                          device="cuda", generator=g)
+        xs = torch.rand(m, device="cuda", generator=g) / 127
+        ws = torch.rand(n, device="cuda", generator=g) / 127
+        one_m = torch.ones(m, device="cuda")
+        one_n = torch.ones(n, device="cuda")
+        steps = -(-k // bk)
+        rule = mm_kernel.split_k(m, n, k, bm, bk, bn, sms)
+        splits = sorted({s for s in (1, 2, 3, 7, steps, rule) if s <= steps})
+        for split in splits:
+            call = lambda a, b, dt: mm_kernel.matmul_int8(
+                x, w, a, b, bm=bm, bk=bk, bn=bn, out_dtype=dt,
+                split_k=split)
+            require(torch.equal(call(one_m, one_n, torch.float32),
+                                matmul_int8_ref(x, w, one_m, one_n,
+                                                torch.float32)),
+                    f"matmul_int8 exact at {(m, k, n)} split {split}")
+            for dt in (torch.float32, torch.bfloat16):
+                require(torch.equal(call(xs, ws, dt),
+                                    matmul_int8_ref(x, w, xs, ws, dt)),
+                        f"matmul_int8 bit-equal {dt} at {(m, k, n)} "
+                        f"split {split}")
+        first = mm_kernel.matmul_int8(x, w, xs, ws, bm=bm, bk=bk, bn=bn,
+                                      out_dtype=torch.float32)
+        require(torch.equal(first, mm_kernel.matmul_int8(
+            x, w, xs, ws, bm=bm, bk=bk, bn=bn, out_dtype=torch.float32)),
+            f"matmul_int8 deterministic at {(m, k, n)} split {rule}")
+        print(f"[matmul_int8] bit-equal at {(m, k, n)} blocks "
+              f"{(bm, bk, bn)} for splits {splits} (rule {rule}), float32 "
+              f"and bfloat16", flush=True)
     rows = []
     for label, plan in plans:
         rows += _matmul_plan_rows(torch, label, plan, timer, g)
@@ -349,6 +415,7 @@ def _matmul_plan_rows(torch, label, plan, timer, g) -> list[dict]:
     from repro_torch.kernels.matmul_int8 import kernel as mm_kernel
     from repro_torch.kernels.matmul_int8.ref import (matmul_int8_ref,
                                                      quantize_rowwise)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for op, count in unique_ops(plan, "matmul_int8"):
         s = op.spec
@@ -372,15 +439,24 @@ def _matmul_plan_rows(torch, label, plan, timer, g) -> list[dict]:
         require(bool(torch.isfinite(out).all()), f"{op.name} finite")
         require(rel <= NUMERICS_TOL["matmul_int8"],
                 f"{op.name} rel err {rel}")
-        b_ms, b_by = bound_ms(m * k + k * n + 4 * (m + n) + 4 * m * n,
-                              2.0 * m * n * k, "int8")
+        # the split-K workspace (one int32 partial per split) is written
+        # once and read once
+        split = mm_kernel.split_k(m, n, k, s["bm"], s["bk"], s["bn"], sms)
+        n_bytes = m * k + k * n + 4 * (m + n) + 4 * m * n + \
+            (2 * 4 * split * m * n if split > 1 else 0)
+        b_ms, b_by = bound_ms(n_bytes, 2.0 * m * n * k, "int8")
+        ms = timer(kern)
         row = {"path": label, "op": op.name, "shape": (m, k, n),
                "blocks": (s["bm"], s["bk"], s["bn"]), "count": count,
+               "split_k": split,
+               "ctas": -(-m // s["bm"]) * -(-n // s["bn"]) * split,
                "rel_err": rel,
                "max_abs_err": float((out - ref).abs().max()),
-               "ms": timer(kern), "plain_ms": timer(plain),
+               "ms": ms, "plain_ms": timer(plain),
                "library_ms": timer(lib) if lib else None, "bound_ms": b_ms,
-               "bound_by": b_by, "op_ms": op.measured_s * 1e3}
+               "bound_by": b_by, "bound_share": b_ms / ms,
+               "gb_s": n_bytes / ms / 1e6, "bound_gb_s": HBM_BYTES_S / 1e9,
+               "op_ms": op.measured_s * 1e3}
         rows.append(row)
         print(f"[matmul_int8] {json.dumps(row)}", flush=True)
         del xq, wq, out, ref

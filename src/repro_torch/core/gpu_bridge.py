@@ -9,9 +9,10 @@ What changes from the TPU bridge:
     (powers of two, `kernels/*/kernel.py`). The kernels mask ragged tails,
     so a block need not divide its dim and nothing is padded;
   * eq. (9) capacity: a block's shared memory times the kernel's stage
-    count must fit what one CTA may use, in place of the pipelined
-    (doubled) working set against VMEM. The int32 / f32 accumulators live
-    in registers on the GPU, not in the on-chip buffer;
+    count (matmul_int8 keeps a ring of 3) must fit what one CTA may opt
+    into, in place of the pipelined (doubled) working set against VMEM.
+    The int32 / f32 accumulators live in registers on the GPU, not in the
+    on-chip buffer;
   * the shared-memory default is the H100's (below), never the TPU's VMEM.
 
 The bridge MIP (`select_matmul_blocks`) is off the measured-execution
@@ -71,9 +72,11 @@ def select_blocks_from_mapping(mapping, layer, arch, *,
     kernel's shared memory times its stage count fits one CTA (eq. 9).
 
     ``cap`` bounds every block dim; the measured-execution backend lowers
-    it so each op spans several CTAs. The kernel's tiles are static shared
-    memory (at most 48 KB), which every tile of its set fits in one stage,
-    so the halving acts only when ``smem_bytes`` asks for less.
+    it so each op spans several CTAs. The budget is the smaller of the
+    kernel's opt-in ceiling and the card's (``device_smem_bytes``) unless
+    ``smem_bytes`` is given. Every tile of the set fits an H100's with its
+    whole ring (128^3: 3 x 32 KB), so the halving acts only when
+    ``smem_bytes`` asks for less.
     """
     from repro_torch.core import workload as wl
 
@@ -93,10 +96,18 @@ def select_blocks_from_mapping(mapping, layer, arch, *,
     bm = _snap(hints["N"], m, tiles_m, cap)
     bk = _snap(hints["C"], k, tiles_k, cap)
     bn = _snap(hints["K"], n, tiles_n, cap)
-    budget = mm_kernel.SMEM_LIMIT if smem_bytes is None else \
-        min(mm_kernel.SMEM_LIMIT, smem_bytes)
+    budget = min(mm_kernel.SMEM_LIMIT, device_smem_bytes()
+                 if smem_bytes is None else smem_bytes)
+    return fit_blocks(bm, bk, bn, budget)
+
+
+def fit_blocks(bm: int, bk: int, bn: int, budget: int) -> tuple[int, int, int]:
+    """eq. 9 per CTA: halve the largest of (bm, bk, bn) within its tile set
+    until the kernel's ring (``STAGES`` x ``smem_bytes``) fits ``budget``
+    bytes; blocks that fit come back unchanged."""
+    tiles_m, tiles_k, tiles_n = (mm_kernel.BM_TILES, mm_kernel.BK_TILES,
+                                 mm_kernel.BN_TILES)
     while mm_kernel.STAGES * mm_kernel.smem_bytes(bm, bk, bn) > budget:
-        # eq. 9 per CTA
         if bm >= max(bk, bn) and bm > min(tiles_m):
             bm = _smaller(tiles_m, bm)
         elif bk >= bn and bk > min(tiles_k):

@@ -137,6 +137,119 @@ def test_matmul_int8_k1_m1_exact(cuda, m, k, n):
                 assert torch.equal(out, ref), (bm, bk, bn)
 
 
+def _int8_case(m, k, n, seed):
+    g = _gen(seed)
+    x = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda",
+                      generator=g)
+    w = torch.randint(-127, 128, (k, n), dtype=torch.int8, device="cuda",
+                      generator=g)
+    return x, w, torch.ones(m, device="cuda"), torch.ones(n, device="cuda")
+
+
+def _splits(m, k, n, bm, bk, bn):
+    """1, a few others and the rule's split for this card, all legal."""
+    from repro_torch.kernels.matmul_int8 import kernel
+    steps = -(-k // bk)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rule = kernel.split_k(m, n, k, bm, bk, bn, sms)
+    return sorted({s for s in (1, 2, 3, 7, steps, rule) if s <= steps})
+
+
+@pytest.mark.parametrize("m,k,n,bm,bk,bn", [
+    (128, 4096 + 24, 256, 128, 128, 128),  # K ragged, the last step short
+    (128, 13696, 4096, 128, 128, 128),     # path A's ffn_down, 107 steps
+    (100, 1000, 360, 64, 32, 64),          # ragged M, N and K, small tiles
+    (1, 4096 + 24, 256, 16, 128, 128)],    # M = 1
+    ids=str)
+def test_matmul_int8_split_k_exact(cuda, m, k, n, bm, bk, bn):
+    """Split-K sums the int32 partials exactly: under unit scales every
+    split, the rule's included, equals the plain version bit for bit (also
+    past |acc| = 2**24, where both round the same sum to float32), with
+    one launch per call."""
+    from repro_torch.kernels.matmul_int8 import kernel
+    from repro_torch.kernels.matmul_int8.ref import matmul_int8_ref
+    x, w, ones_m, ones_n = _int8_case(m, k, n, 12)
+    ref = matmul_int8_ref(x, w, ones_m, ones_n, torch.float32)
+    for split in _splits(m, k, n, bm, bk, bn):
+        before = kernel.launches
+        out = kernel.matmul_int8(x, w, ones_m, ones_n, bm=bm, bk=bk, bn=bn,
+                                 out_dtype=torch.float32, split_k=split)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert torch.equal(out, ref), split
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (128, 1, 64), (1, 128, 64),
+                                   (1, 200, 100)])
+def test_matmul_int8_k1_m1_under_splits(cuda, m, k, n):
+    """M = 1, K = 1 and (1, 1, 1) at every tile of the set and every split
+    its K steps allow (K = 1 has one step, so only split 1)."""
+    from repro_torch.kernels.matmul_int8 import kernel
+    from repro_torch.kernels.matmul_int8.ref import matmul_int8_ref
+    x, w, ones_m, ones_n = _int8_case(m, k, n, 13)
+    ref = matmul_int8_ref(x, w, ones_m, ones_n, torch.float32)
+    for bm in kernel.BM_TILES:
+        for bn in kernel.BN_TILES:
+            for bk in kernel.BK_TILES:
+                for split in _splits(m, k, n, bm, bk, bn):
+                    out = kernel.matmul_int8(
+                        x, w, ones_m, ones_n, bm=bm, bk=bk, bn=bn,
+                        out_dtype=torch.float32, split_k=split)
+                    assert torch.equal(out, ref), (bm, bk, bn, split)
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_matmul_int8_split_k_scaled_outputs(cuda, out_dtype):
+    """With real scales the epilogue multiplies in the plain version's order
+    and rounds once to the output type, so float32 and bfloat16 outputs
+    equal the plain version's bit for bit, split or not."""
+    from repro_torch.kernels.matmul_int8 import kernel
+    from repro_torch.kernels.matmul_int8.ref import matmul_int8_ref
+    m, k, n = 128, 4096 + 24, 256
+    x, w, _, _ = _int8_case(m, k, n, 14)
+    g = _gen(15)
+    xs = torch.rand(m, device=cuda, generator=g) / 127
+    ws = torch.rand(n, device=cuda, generator=g) / 127
+    dt = getattr(torch, out_dtype)
+    ref = matmul_int8_ref(x, w, xs, ws, dt)
+    for split in _splits(m, k, n, 128, 128, 128):
+        out = kernel.matmul_int8(x, w, xs, ws, bm=128, bk=128, bn=128,
+                                 out_dtype=dt, split_k=split)
+        assert out.dtype == dt and torch.equal(out, ref), split
+
+
+def test_matmul_int8_split_k_deterministic(cuda):
+    """Two calls under the rule's split (the atomics land in another order
+    each time) give the same bits."""
+    from repro_torch.kernels.matmul_int8 import kernel
+    m, k, n = 128, 4096, 256
+    x, w, _, _ = _int8_case(m, k, n, 16)
+    g = _gen(17)
+    xs = torch.rand(m, device=cuda, generator=g)
+    ws = torch.rand(n, device=cuda, generator=g)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert kernel.split_k(m, n, k, 128, 128, 128, sms) > 1
+    a = kernel.matmul_int8(x, w, xs, ws, out_dtype=torch.float32)
+    b = kernel.matmul_int8(x, w, xs, ws, out_dtype=torch.float32)
+    assert torch.equal(a, b)
+
+
+def test_matmul_smem_bytes_match_the_launch(cuda):
+    """`kernel.STAGES * kernel.smem_bytes` is what every launch of the tile
+    set passes (static plus dynamic shared memory, as the CUDA runtime
+    reports it); no tile spills to local memory and the card holds at
+    least one CTA of each."""
+    from repro_torch.kernels.matmul_int8 import kernel
+    for bm in kernel.BM_TILES:
+        for bn in kernel.BN_TILES:
+            for bk in kernel.BK_TILES:
+                occ = kernel.occupancy(bm, bk, bn)
+                want = kernel.STAGES * kernel.smem_bytes(bm, bk, bn)
+                assert occ["smem_bytes"] == want, (bm, bk, bn)
+                assert occ["local_bytes"] == 0, (bm, bk, bn)
+                assert occ["ctas_per_sm"] >= 1 and occ["regs"] > 0
+
+
 def _ssd_inputs(shape, dtype, g):
     b, nc, q, h, n, p = shape
     c = torch.randn((b, nc, q, h, n), device="cuda", generator=g)

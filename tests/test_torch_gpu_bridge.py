@@ -3,6 +3,8 @@ from solved mappings are legal for the CUDA kernels — in their tile sets,
 within the executor's block cap, and within one CTA's shared memory times
 the kernel's stage count (eq. 9)."""
 
+import itertools
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -15,7 +17,7 @@ from repro_torch.core.baselines import greedy_mapping
 from repro_torch.core.executor import EXEC_BLOCK_CAP
 from repro_torch.core.frontend import extract_workload
 from repro_torch.core.gpu_bridge import (DECODE_BLOCK_K, SMEM_BYTES,
-                                         device_smem_bytes,
+                                         device_smem_bytes, fit_blocks,
                                          select_blocks_from_mapping,
                                          select_flash_blocks)
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -63,6 +65,37 @@ def test_mapped_blocks_shrink_to_fit_a_small_budget():
     small = select_blocks_from_mapping(mp, layer, ARCH, smem_bytes=budget)
     assert mm_kernel.STAGES * mm_kernel.smem_bytes(*small) <= budget
     assert small != big
+
+
+def test_every_matmul_tile_fits_the_default_budget():
+    """The kernel's whole ring (STAGES x smem_bytes) fits the H100's opt-in
+    shared memory at every tile of the set, 128^3 included, so eq. 9 halves
+    nothing unless a caller asks for less."""
+    budget = min(mm_kernel.SMEM_LIMIT, device_smem_bytes())
+    for blocks in itertools.product(mm_kernel.BM_TILES, mm_kernel.BK_TILES,
+                                    mm_kernel.BN_TILES):
+        assert mm_kernel.STAGES * mm_kernel.smem_bytes(*blocks) <= \
+            min(SMEM_BYTES, mm_kernel.SMEM_LIMIT), blocks
+        assert fit_blocks(*blocks, budget) == blocks
+
+
+# The blocks the main paths' plans run with (their MIP mappings through
+# this bridge): glm4-9b decode_32k (path A) and mamba2-1.3b prefill_32k
+# (path B)
+PATH_BLOCKS = {"A every GEMM": (128, 128, 128),
+               "B in_proj, out_proj": (128, 128, 128),
+               "B ssd_s_chunk": (128, 64, 64),
+               "B ssd_y_inter": (128, 128, 64),
+               "B lm_head": (16, 128, 128)}
+
+
+@pytest.mark.parametrize("blocks", PATH_BLOCKS.values(), ids=PATH_BLOCKS)
+def test_path_blocks_unchanged(blocks):
+    """Paths A's and B's blocks pass eq. 9 as they are: at the default
+    budget the bridge halves none of them."""
+    budget = min(mm_kernel.SMEM_LIMIT, device_smem_bytes())
+    assert mm_kernel.STAGES * mm_kernel.smem_bytes(*blocks) <= budget
+    assert fit_blocks(*blocks, budget) == blocks
 
 
 def test_mapped_blocks_do_not_exceed_the_dims_needlessly():
