@@ -49,7 +49,8 @@
 //     16-byte stores into its own slot of an int32 workspace the wrapper
 //     allocates; a second kernel, launched by the same entry point as a
 //     programmatic dependent (scheduled while the GEMM runs), sums the
-//     slots in split order and runs the epilogue over the whole card.
+//     slots in split order and runs the GEMM's own epilogue (store_row)
+//     over the whole card.
 //     Integer sums are exact, so the result is bit-equal to the unsplit
 //     one and deterministic. (int32
 //     atomics into one zeroed sum, tried first, were slower at path A's
@@ -218,45 +219,53 @@ __device__ __forceinline__ void transpose4x4(const uint32_t (&v)[4],
   o[3] = __byte_perm(t1, t3, 0x7632);
 }
 
-// The epilogue of one row: 8 int32 sums at columns gn .. gn+7, scaled and
-// stored in the plain version's order.
-__device__ __forceinline__ void store_row8(const int (&v)[8], int gm, int gn,
-                                           int N, float sx,
-                                           const float* __restrict__ ws,
-                                           void* __restrict__ out, int out_bf16,
-                                           bool out_vec) {
-  float f[8];
+// The epilogue of one row: W (8 or 4) int32 sums at columns gn .. gn+W-1,
+// scaled and stored in the plain version's order. The GEMM stores 8 per
+// lane, the split-K reduce pass 4 per thread.
+template <int W>
+__device__ __forceinline__ void store_row(const int (&v)[W], int gm, int gn,
+                                          int N, float sx,
+                                          const float* __restrict__ ws,
+                                          void* __restrict__ out, int out_bf16,
+                                          bool out_vec) {
+  static_assert(W == 4 || W == 8, "a row segment is 4 or 8 columns");
+  float f[W];
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < W; ++j)
     f[j] = gn + j < N ? __fmul_rn(__fmul_rn(__int2float_rn(v[j]), sx), ws[gn + j])
                       : 0.f;
   const size_t base = (size_t)gm * N + gn;
-  const bool full = out_vec && gn + 8 <= N;
+  const bool full = out_vec && gn + W <= N;
   if (out_bf16) {
     __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out) + base;
     if (full) {
-      uint32_t p[4];
+      uint32_t p[W / 2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < W / 2; ++j) {
         const __nv_bfloat162 h =
             __halves2bfloat162(__float2bfloat16_rn(f[2 * j]),
                                __float2bfloat16_rn(f[2 * j + 1]));
         p[j] = *reinterpret_cast<const uint32_t*>(&h);
       }
-      *reinterpret_cast<uint4*>(o) = make_uint4(p[0], p[1], p[2], p[3]);
+      if constexpr (W == 8)
+        *reinterpret_cast<uint4*>(o) = make_uint4(p[0], p[1], p[2], p[3]);
+      else
+        *reinterpret_cast<uint2*>(o) = make_uint2(p[0], p[1]);
     } else {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < W; ++j)
         if (gn + j < N) o[j] = __float2bfloat16_rn(f[j]);
     }
   } else {
     float* o = static_cast<float*>(out) + base;
     if (full) {
-      reinterpret_cast<float4*>(o)[0] = make_float4(f[0], f[1], f[2], f[3]);
-      reinterpret_cast<float4*>(o)[1] = make_float4(f[4], f[5], f[6], f[7]);
+#pragma unroll
+      for (int j = 0; j < W / 4; ++j)
+        reinterpret_cast<float4*>(o)[j] =
+            make_float4(f[4 * j], f[4 * j + 1], f[4 * j + 2], f[4 * j + 3]);
     } else {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < W; ++j)
         if (gn + j < N) o[j] = f[j];
     }
   }
@@ -378,7 +387,7 @@ matmul_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
       for (int j = 0; j < 8; ++j) v[j] = acc[i][j & 3][2 * hf + (j >> 2)];
       if (part == nullptr) {
-        store_row8(v, gm, gn, N, xs[gm], ws, out, out_bf16, out_vec);
+        store_row(v, gm, gn, N, xs[gm], ws, out, out_bf16, out_vec);
       } else if (N % 4 == 0 && gn + 8 <= N) {  // this split's int32 partial
         int4* p = reinterpret_cast<int4*>(part + (size_t)gm * N + gn);
         p[0] = make_int4(v[0], v[1], v[2], v[3]);
@@ -392,14 +401,15 @@ matmul_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 }
 
 // Split-K, second pass: out[m][n] = the int32 partials of the splits
-// summed in split order (exact), then the epilogue. A thread takes 4
-// consecutive columns of a row, with 16-byte loads of each split's partial
-// when N % 4 == 0; rows are strided over gridDim.y.
+// summed in split order (exact), then the GEMM's own epilogue
+// (`store_row`). A thread takes 4 consecutive columns of a row, with
+// 16-byte loads of each split's partial when N % 4 == 0; rows are strided
+// over gridDim.y.
 __global__ void __launch_bounds__(256)
 split_k_reduce_kernel(const int* __restrict__ parts, int splits,
                       const float* __restrict__ xs,
                       const float* __restrict__ ws, void* __restrict__ out,
-                      int M, int N, int out_bf16) {
+                      int M, int N, int out_bf16, int out_vec) {
   // launched as a programmatic dependent of the GEMM: every partial is
   // written and visible once the GEMM grid has completed
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -422,27 +432,7 @@ split_k_reduce_kernel(const int* __restrict__ parts, int splits,
         for (int j = 0; j < 4; ++j)
           if (n + j < N) v[j] += __ldcg(p + z * plane + j);
     }
-    const float sx = xs[m];
-    float f[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      f[j] = n + j < N ? __fmul_rn(__fmul_rn(__int2float_rn(v[j]), sx), ws[n + j])
-                       : 0.f;
-    const size_t o = (size_t)m * N + n;
-    if (out_bf16) {
-      __nv_bfloat16* q = static_cast<__nv_bfloat16*>(out) + o;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (n + j < N) q[j] = __float2bfloat16_rn(f[j]);
-    } else if (vec && reinterpret_cast<uintptr_t>(out) % 16 == 0) {
-      *reinterpret_cast<float4*>(static_cast<float*>(out) + o) =
-          make_float4(f[0], f[1], f[2], f[3]);
-    } else {
-      float* q = static_cast<float*>(out) + o;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (n + j < N) q[j] = f[j];
-    }
+    store_row(v, m, n, N, xs[m], ws, out, out_bf16, out_vec);
   }
 }
 
@@ -550,7 +540,8 @@ extern "C" int matmul_int8_launch(const void* x, const void* w, const void* xs,
   e = cudaLaunchKernelEx(&cfg, split_k_reduce_kernel,
                          static_cast<const int*>(parts), split,
                          static_cast<const float*>(xs),
-                         static_cast<const float*>(ws), out, M, N, out_bf16);
+                         static_cast<const float*>(ws), out, M, N, out_bf16,
+                         (int)out_vec);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 

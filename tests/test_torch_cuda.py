@@ -219,8 +219,8 @@ def test_matmul_int8_split_k_scaled_outputs(cuda, out_dtype):
 
 
 def test_matmul_int8_split_k_deterministic(cuda):
-    """Two calls under the rule's split (the atomics land in another order
-    each time) give the same bits."""
+    """Two calls under the rule's split give the same bits: the reduce pass
+    sums the int32 partials in split order."""
     from repro_torch.kernels.matmul_int8 import kernel
     m, k, n = 128, 4096, 256
     x, w, _, _ = _int8_case(m, k, n, 16)

@@ -79,23 +79,63 @@ def test_every_matmul_tile_fits_the_default_budget():
         assert fit_blocks(*blocks, budget) == blocks
 
 
-# The blocks the main paths' plans run with (their MIP mappings through
-# this bridge): glm4-9b decode_32k (path A) and mamba2-1.3b prefill_32k
-# (path B)
-PATH_BLOCKS = {"A every GEMM": (128, 128, 128),
-               "B in_proj, out_proj": (128, 128, 128),
-               "B ssd_s_chunk": (128, 64, 64),
-               "B ssd_y_inter": (128, 128, 64),
-               "B lm_head": (16, 128, 128)}
+# The blocks the MIREDO solves of the main paths chose on the card
+# (chip_smoke.py's matmul rows): glm4-9b decode_32k (path A) and
+# mamba2-1.3b prefill_32k (path B)
+CHIP_RUN_BLOCKS = {"A every GEMM": (128, 128, 128),
+                   "B in_proj, out_proj": (128, 128, 128),
+                   "B ssd_s_chunk": (128, 64, 64),
+                   "B ssd_y_inter": (128, 128, 64),
+                   "B lm_head": (16, 128, 128)}
 
 
-@pytest.mark.parametrize("blocks", PATH_BLOCKS.values(), ids=PATH_BLOCKS)
-def test_path_blocks_unchanged(blocks):
-    """Paths A's and B's blocks pass eq. 9 as they are: at the default
-    budget the bridge halves none of them."""
+@pytest.mark.parametrize("blocks", CHIP_RUN_BLOCKS.values(),
+                         ids=CHIP_RUN_BLOCKS)
+def test_chip_run_blocks_fit_unhalved(blocks):
+    """The five block tuples the card's MIREDO plans of paths A and B ran
+    pass eq. 9 as they are: at the default budget none is halved."""
     budget = min(mm_kernel.SMEM_LIMIT, device_smem_bytes())
     assert mm_kernel.STAGES * mm_kernel.smem_bytes(*blocks) <= budget
     assert fit_blocks(*blocks, budget) == blocks
+
+
+# Paths A and B of chip_smoke.py at their published widths
+MAIN_PATHS = {"A": ("glm4-9b", "decode_32k"), "B": ("mamba2-1.3b",
+                                                     "prefill_32k")}
+
+
+@pytest.mark.parametrize("path", MAIN_PATHS)
+def test_path_blocks_unchanged(path, monkeypatch):
+    """Lowering path A's and path B's plans (greedy solves, so the test is
+    deterministic) gives every matmul op the blocks its mapping snaps to
+    before eq. 9: the bridge halves nothing, and each op's ring fits the
+    default budget. Every GEMM of path A runs at 128^3."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.core import gpu_bridge
+    from repro_torch.core.cache import mapping_from_json
+    from repro_torch.core.executor import lower_plan
+    from repro_torch.core.network import optimize_network
+    aid, shape = MAIN_PATHS[path]
+    cfg, spec = get_config(aid), SHAPES[shape]
+    work = extract_workload(cfg, spec)
+    net = optimize_network(list(work.layers), ARCH, "greedy",
+                           counts=list(work.counts), use_cache=False,
+                           workers=1)
+    budget = min(mm_kernel.SMEM_LIMIT, device_smem_bytes())
+    ops = [op for op in lower_plan(cfg, spec, net, ARCH).ops
+           if op.kernel == "matmul_int8"]
+    assert ops
+    # the blocks each mapping snaps to, with eq. 9's halving taken out
+    monkeypatch.setattr(gpu_bridge, "fit_blocks", lambda *b: b[:3])
+    for op in ops:
+        lr = net.layers[op.layer_indices[0]]
+        blocks = (op.spec["bm"], op.spec["bk"], op.spec["bn"])
+        assert blocks == select_blocks_from_mapping(
+            mapping_from_json(lr.record["mapping"]), lr.layer, ARCH,
+            cap=EXEC_BLOCK_CAP), op.name
+        assert mm_kernel.STAGES * mm_kernel.smem_bytes(*blocks) <= budget
+        if path == "A":
+            assert blocks == (128, 128, 128), op.name
 
 
 def test_mapped_blocks_do_not_exceed_the_dims_needlessly():
