@@ -9,12 +9,15 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      CUDA versions;
   2. build — the three CUDA kernels from the sources in the checkout, one
      ``nvcc`` per source, started together; registers, shared memory and
-     spills of every instantiation (``-Xptxas -v``; a matmul_int8 spill
+     spills of every instantiation (``-Xptxas -v``; a spill in any kernel
      fails the run); every matmul_int8 and flash_attention launch's shared
      memory, as the library reports it, against ``kernel.smem_bytes``
      (times ``STAGES`` for matmul_int8); matmul_int8's threads, registers
-     and resident CTAs per SM at every tile, the decode kernel's registers
-     and resident CTAs per SM (the CUDA occupancy API);
+     and resident CTAs per SM at every tile, the flash prefill kernel's
+     registers, shared memory and resident CTAs per SM at every tile for
+     hd 128 and 64 in both dtypes, the decode kernel's (the CUDA occupancy
+     API); HMMA (tensor-core) instructions in the SASS of every flash
+     prefill instance (``cuobjdump -sass``), or the run fails;
   3. main paths, each with a cold solve cache and every launch counter
      zeroed just before it and read just after; every op must run on its
      kernel (``path == "cuda"``) and pass its oracle:
@@ -32,11 +35,13 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      under split-K (K ragged across the splits, M = 1, float32 and
      bfloat16, two calls alike), then at every shape and block of paths A
      and B with its split, CTAs, achieved GB/s and share of the bound;
-     flash_attention in causal
-     prefill (L = 1024, 4096), bidirectional, L = 264, path A's decode
-     step and path C's minicpm-2b decode step (the two decode steps at
-     every block_k, with achieved GB/s beside the bound), in float32 and
-     bfloat16; ssd_scan at every one-cell shape the
+     flash_attention at path A's decode step and path C's minicpm-2b
+     decode step (both at every block_k, with achieved GB/s beside the
+     bound), path C's prefill attention ops at their plan shapes and
+     blocks, causal prefill (L = 1024, 4096), bidirectional and L = 264 at
+     the bridge's blocks, and the prefill sweep (`PREFILL_SWEEP`, every
+     tile, the bridge's prefill rule's evidence), in float32 and bfloat16;
+     ssd_scan at every one-cell shape the
      plans run, at odd Q = 24 and at the full grid of one mamba2-1.3b
      ``prefill_32k`` layer for one sequence, in float32 and bfloat16.
      Each is timed (CUDA events, L2 flushed before every launch, median)
@@ -70,9 +75,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 #: H100 SXM data-sheet rates (NVIDIA, dense, no sparsity): device memory,
-#: dense int8 and bf16 tensor cores, float32 outside the tensor cores.
+#: dense int8 and bf16 tensor cores, and for float32 the TF32 tensor cores
+#: (495e12): the executor's tolerances admit TF32, and a bound must not
+#: depend on the unit a kernel picks (at the 67e12 FMA peak a TF32 kernel
+#: would read over 100 % of its bound). That holds for every float32 row,
+#: ssd_scan's included.
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"int8": 1979e12, "bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_S = {"int8": 1979e12, "bfloat16": 989e12, "float32": 495e12}
 REPLACES = {
     "matmul_int8": "src/repro/kernels/matmul_int8/kernel.py:61",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:85",
@@ -137,33 +146,62 @@ def phase_device(torch) -> dict:
     return info
 
 
+def _short_names(mangled: list[str]) -> list[str]:
+    """``name_kernel<...>`` for each mangled kernel name (c++filt, where
+    the toolkit has it; the mangled name otherwise)."""
+    demangle = shutil.which("c++filt")
+    if not demangle or not mangled:
+        return list(mangled)
+    full = subprocess.run([demangle], input="\n".join(mangled),
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.splitlines()
+    out = []
+    for m, f in zip(mangled, full):
+        found = re.search(r"\w+_kernel(<[^>]*>)?", f)
+        out.append(found.group(0) if found else m)
+    return out
+
+
+def _tensor_core_counts(lib: Path) -> dict[str, int]:
+    """HMMA (tensor-core) instructions per kernel in a built library's
+    SASS (``cuobjdump -sass``)."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    names, counts = [], []
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            names.append(found.group(1))
+            counts.append(0)
+        elif names and "HMMA" in line:
+            counts[-1] += 1
+    return dict(zip(_short_names(names), counts))
+
+
 def phase_build(torch) -> None:
     from repro_torch.kernels import _build
     t0 = time.monotonic()
     _build.build_all()
     print(f"[build] {len(_build.SOURCES)} kernels in "
           f"{time.monotonic() - t0:.1f} s", flush=True)
-    demangle = shutil.which("c++filt")
     spills = []
     for name in _build.SOURCES:
+        lines = _build.log_path(name).read_text().splitlines()
+        mangled = [line.split("'")[1] for line in lines
+                   if "Compiling entry function" in line]
+        short = iter(_short_names(mangled))
         entry = None
-        for line in _build.log_path(name).read_text().splitlines():
+        for line in lines:
             if "Compiling entry function" in line:
-                entry = line.split("'")[1]
-                if demangle:
-                    full = subprocess.run(
-                        [demangle, entry], capture_output=True, text=True,
-                        timeout=60).stdout
-                    found = re.search(r"\w+_kernel(<[^>]*>)?", full)
-                    entry = found.group(0) if found else entry
+                entry = next(short)
             elif "Used" in line and "registers" in line and entry:
                 print(f"[build] {entry}: {line.split(':', 1)[1].strip()}")
             elif "spill" in line and entry and " 0 bytes spill" not in line:
                 print(f"[build] {entry}: {line.strip()}")
-                if name == "matmul_int8":
-                    spills.append(entry)
+                spills.append(entry)
         _build.load(name)
-    require(not spills, f"matmul_int8 spills registers in {spills}")
+    require(not spills, f"register spills in {spills}")
     from repro_torch.kernels.matmul_int8 import kernel as mm_kernel
     occ = {}
     for bm in mm_kernel.BM_TILES:
@@ -182,11 +220,9 @@ def phase_build(torch) -> None:
           f"resident CTAs per SM), no spill, shared memory = STAGES x "
           f"smem_bytes at every tile: {occ}", flush=True)
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    prefill = [(bq, bk) for bq in fa_kernel.BQ_TILES if bq > 1
+               for bk in fa_kernel.BK_TILES]
     for dt, el in (("float32", 4), ("bfloat16", 2)):
-        sizes = {f"{bq}x{bk}": fa_kernel.smem_bytes(bq, bk, 128, el)
-                 for bq in fa_kernel.BQ_TILES for bk in fa_kernel.BK_TILES}
-        print(f"[build] flash_attention dynamic smem bytes at hd=128, {dt} "
-              f"(bq x bk): {sizes}")
         # what each launch really passes, from the library itself
         for bq in fa_kernel.BQ_TILES:
             for bk in fa_kernel.BK_TILES:
@@ -198,6 +234,14 @@ def phase_build(torch) -> None:
                             f"with {got['smem_bytes']} bytes of shared "
                             f"memory, kernel.smem_bytes says {want}")
         for hd in (128, 64):
+            occ = {}
+            for bq, bk in prefill:
+                o = fa_kernel.occupancy(bq, bk, hd, getattr(torch, dt))
+                occ[f"{bq}x{bk}"] = (o["regs"], o["smem_bytes"],
+                                     o["ctas_per_sm"])
+            print(f"[build] flash prefill kernel (bq / 16 warps) at hd={hd}, "
+                  f"{dt} (bq x bk): (registers, shared memory bytes, "
+                  f"resident CTAs per SM): {occ}")
             parts = []
             for bk in fa_kernel.BK_TILES:
                 o = fa_kernel.occupancy(1, bk, hd, getattr(torch, dt))
@@ -207,6 +251,18 @@ def phase_build(torch) -> None:
                              f"resident CTAs ({warps} warps) per SM")
             print(f"[build] flash decode kernel (bq=1) at hd={hd}, {dt}: "
                   + "; ".join(parts), flush=True)
+    # the prefill tiles run on the tensor cores: every instance carries
+    # HMMA instructions
+    hmma = {f: n for f, n in _tensor_core_counts(
+        _build.library_path("flash_attention")).items()
+        if f.startswith("flash_prefill_kernel")}
+    want = 2 * len(prefill) * len(fa_kernel.HEAD_DIM_TILES)
+    require(len(hmma) == want and all(hmma.values()),
+            f"flash prefill tensor-core instructions: {len(hmma)} of {want} "
+            f"instances found, counts {hmma}")
+    print(f"[build] flash prefill kernel: HMMA in the SASS of all {want} "
+          f"instances ({min(hmma.values())}..{max(hmma.values())} each)",
+          flush=True)
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     sizes = {f"{n}x{p}": ssd_kernel.smem_bytes(n, p)
              for n, p in ((8, 8), (128, 64), (128, 128))}
@@ -466,20 +522,33 @@ def _matmul_plan_rows(torch, label, plan, timer, g) -> list[dict]:
     return rows
 
 
-def flash_rows(torch, plan, timer) -> list[dict]:
+#: Shapes of the prefill sweep, every (block_q >= 16, block_k) tile in
+#: both dtypes: (b, L, h, hd), causal. Long causal prefill, path C's
+#: minicpm-2b exec_prefill (L 512) and exec_train (L 64) with two lengths
+#: between, and L 264 (no tile divides it; 16 (b, h) rows).
+#: `gpu_bridge.select_flash_blocks`' prefill rule is read from it.
+PREFILL_SWEEP = ((1, 4096, 32, 128), (1, 512, 36, 64), (1, 256, 36, 64),
+                 (1, 128, 36, 64), (1, 64, 36, 64), (2, 264, 8, 128))
+
+
+def flash_rows(torch, plan, out_c, timer) -> list[dict]:
+    """``plan``: path A's; ``out_c``: path C's report, whose prefill
+    attention ops (``flash_ops``) are held and timed at their plan shapes
+    and blocks."""
     import torch.nn.functional as F
     from repro_torch.core.executor import NUMERICS_TOL
+    from repro_torch.core.gpu_bridge import select_flash_blocks
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
-    # (plan op or None, count in the plan, name, (b, lq, lk, h, hd,
-    # causal, dtype, block_q, block_k)); the executor runs float32 at the
-    # bridge's blocks, so only that row of a plan op counts launches of
-    # the main path. A decode op (block_q = 1) is also run at every
-    # block_k of the set, in both dtypes: the sweep the bridge's decode
-    # pick (`gpu_bridge.DECODE_BLOCK_K`) is read from
+    # (path, count in that path's plan, op ms there, name, (b, lq, lk, h,
+    # hd, causal, dtype, block_q, block_k)); the executor runs float32 at
+    # the bridge's blocks, so only that row of a plan op counts for its
+    # path. A decode op (block_q = 1) is also run at every block_k of the
+    # set, in both dtypes: the sweep the bridge's decode pick
+    # (`gpu_bridge.DECODE_BLOCK_K`) is read from
     cases = []
     for op, count in unique_ops(plan, "flash_attention"):
         s = op.spec
@@ -488,23 +557,44 @@ def flash_rows(torch, plan, timer) -> list[dict]:
         for dt in ("float32", "bfloat16"):
             for bk in bks:
                 main = dt == "float32" and bk == s["bk"]
-                cases.append((op if main else None, count if main else 0,
+                cases.append(("A" if main else None, count if main else 0,
+                              op.measured_s * 1e3 if main else None,
                               op.name if main else f"{op.name} sweep",
                               shape + (dt, s["bq"], bk)))
+    # path C's prefill attention ops (exec_prefill, exec_train) as it ran
+    # them, float32 at the bridge's blocks
+    seen = set()
+    for r in out_c["rows"]:
+        for op in r["flash_ops"]:
+            s = op["spec"]
+            shape = (s["b"], s["lq"], s["lk"], s["h"], s["hd"], s["causal"],
+                     "float32", s["bq"], s["bk"])
+            if s["lq"] > 1 and shape not in seen:
+                seen.add(shape)
+                cases.append(("C", op["count"], op["measured_s"] * 1e3,
+                              f"{r['model']} {r['scenario']} {op['name']}",
+                              shape))
     for dt in ("float32", "bfloat16"):
+        el = 4 if dt == "float32" else 2
         # path C's minicpm-2b exec_decode step (16 sequences against a
         # 256-entry cache, 36 heads of 64), at every block_k
-        cases += [(None, 0, "minicpm-2b exec_decode",
+        cases += [(None, 0, None, "minicpm-2b exec_decode",
                    (16, 1, 256, 36, 64, False, dt, 1, bk))
                   for bk in fa_kernel.BK_TILES]
-        # (b, lq, lk, h, hd, causal, dtype, block_q, block_k)
-        cases += [(None, 0, "mode", shape) for shape in (
-            (1, 1024, 1024, 32, 128, True, dt, 64, 64),
-            (1, 4096, 4096, 32, 128, True, dt, 64, 64),
-            (1, 1024, 1024, 32, 128, False, dt, 64, 64),
-            (2, 264, 264, 8, 128, True, dt, 64, 128))]
-    rows = []
-    for op, count, name, (b, lq, lk, h, hd, causal, dt, bq, bk) in cases:
+        # (b, lq, lk, h, hd, causal) at the bridge's blocks
+        cases += [(None, 0, None, "mode", shape + (dt,) + select_flash_blocks(
+            shape[1], shape[2], shape[4], bytes_el=el,
+            batch_heads=shape[0] * shape[3])) for shape in (
+            (1, 1024, 1024, 32, 128, True), (1, 4096, 4096, 32, 128, True),
+            (1, 1024, 1024, 32, 128, False), (2, 264, 264, 8, 128, True))]
+        cases += [(None, 0, None, "prefill sweep",
+                   (b, l, l, h, hd, True, dt, bq, bk))
+                  for b, l, h, hd in PREFILL_SWEEP
+                  for bq in fa_kernel.BQ_TILES if bq > 1
+                  for bk in fa_kernel.BK_TILES]
+    rows, plain_ms, occ = [], {}, {}
+    for path, count, op_ms, name, (b, lq, lk, h, hd, causal, dt, bq, bk) \
+            in cases:
         dtype = getattr(torch, dt)
         mk = lambda l: torch.randn((b, l, h, hd), device="cuda",
                                    generator=g).to(dtype)
@@ -521,25 +611,48 @@ def flash_rows(torch, plan, timer) -> list[dict]:
         require(bool(torch.isfinite(out).all()) and out.shape == q.shape,
                 f"flash {name} finite, shaped")
         require(rel <= NUMERICS_TOL["flash_attention"],
-                f"flash {(b, lq, lk, h, hd, causal, dt)} rel err {rel}")
+                f"flash {(b, lq, lk, h, hd, causal, dt, bq, bk)} rel err "
+                f"{rel}")
         el = 4 if dt == "float32" else 2
         pairs = (sum(min(i + 1, lk) for i in range(lq)) if causal
                  else lq * lk)
         n_bytes = el * (2 * b * lq * h * hd + 2 * b * lk * h * hd)
         b_ms, b_by = bound_ms(n_bytes, 4.0 * b * h * pairs * hd, dt)
         ms = timer(kern)
-        row = {"path": "A" if op is not None else None, "op": name,
+        # the plain version and SDPA once per shape (not per tile)
+        key = (b, lq, lk, h, hd, causal, dt)
+        if key not in plain_ms:
+            plain_ms[key] = (timer(plain), timer(lib))
+        if (bq, bk, hd, dt) not in occ:
+            occ[bq, bk, hd, dt] = fa_kernel.occupancy(bq, bk, hd, dtype)
+        o = occ[bq, bk, hd, dt]
+        row = {"path": path, "op": name,
                "b": b, "lq": lq, "lk": lk, "h": h, "hd": hd,
                "causal": causal, "dtype": dt, "blocks": (bq, bk),
                "count": count, "rel_err": rel,
                "max_abs_err": float((out.float() - ref.float()).abs().max()),
-               "ms": ms, "plain_ms": timer(plain),
-               "library_ms": timer(lib), "bound_ms": b_ms, "bound_by": b_by,
+               "ms": ms, "plain_ms": plain_ms[key][0],
+               "library_ms": plain_ms[key][1], "bound_ms": b_ms,
+               "bound_by": b_by, "bound_share": b_ms / ms,
                "gb_s": n_bytes / ms / 1e6, "bound_gb_s": HBM_BYTES_S / 1e9,
-               "op_ms": op.measured_s * 1e3 if op is not None else None}
+               "regs": o["regs"], "ctas_per_sm": o["ctas_per_sm"],
+               "op_ms": op_ms}
         rows.append(row)
         print(f"[flash_attention] {json.dumps(row)}", flush=True)
         del q, k, v, out, ref
+    for b, l, h, hd in PREFILL_SWEEP:
+        for dt in ("float32", "bfloat16"):
+            sweep = {r["blocks"]: r["ms"] for r in rows
+                     if r["op"] == "prefill sweep" and r["dtype"] == dt and
+                     (r["b"], r["lq"], r["h"], r["hd"]) == (b, l, h, hd)}
+            fastest = min(sweep, key=sweep.get)
+            pick = select_flash_blocks(l, l, hd, bytes_el=4 if dt ==
+                                       "float32" else 2, batch_heads=b * h)
+            print(f"[flash sweep] {(b, l, h, hd)} causal {dt}: fastest "
+                  f"{fastest} {sweep[fastest]:.4f} ms; bridge pick {pick} "
+                  f"{sweep[pick]:.4f} ms "
+                  f"(+{100 * (sweep[pick] / sweep[fastest] - 1):.1f} %)",
+                  flush=True)
     return rows
 
 
@@ -670,7 +783,7 @@ def main() -> int:
     plans = [("A", rep_a.plan), ("B", rep_b.plan)]
     timer = Timer(torch)
     mm = matmul_rows(torch, plans, timer)
-    fa = flash_rows(torch, rep_a.plan, timer)
+    fa = flash_rows(torch, rep_a.plan, out_c, timer)
     ssd = ssd_rows(torch, plans, timer)
     kernels = [kernel_entry("matmul_int8", mm, "A", launches),
                kernel_entry("flash_attention", fa, "A", launches),

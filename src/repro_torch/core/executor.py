@@ -224,7 +224,7 @@ def _flash_op(prefix: str, group: dict, cfg, spec) -> ExecOp | None:
         bidi = prefix.endswith(".xattn") or prefix.endswith(".enc")
         b, causal = 1, not bidi
     # the runner draws float32 operands (`_run_flash`)
-    bq, bk = select_flash_blocks(lq, lk, hd, bytes_el=4)
+    bq, bk = select_flash_blocks(lq, lk, hd, bytes_el=4, batch_heads=b * h)
     return ExecOp(
         name=f"{prefix}.attention", kernel="flash_attention",
         spec={"b": b, "lq": lq, "lk": lk, "h": h, "hd": hd,

@@ -131,9 +131,21 @@ def fit_blocks(bm: int, bk: int, bn: int, budget: int) -> tuple[int, int, int]:
 DECODE_BLOCK_K = {4: 128, 2: 64}
 
 
+#: Largest KV tile the prefill pick takes; see `select_flash_blocks`.
+PREFILL_MAX_BK = 64
+
+
+def device_sms() -> int:
+    """Streaming multiprocessors of the card, else the H100's 132."""
+    if not torch.cuda.is_available():
+        return 132
+    return torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+
+
 def select_flash_blocks(seq_q: int, seq_k: int, head_dim: int, *,
-                        bytes_el: int = 4,
-                        smem_bytes: int | None = None) -> tuple[int, int]:
+                        bytes_el: int = 4, smem_bytes: int | None = None,
+                        batch_heads: int | None = None) -> tuple[int, int]:
     """(block_q, block_k) for the flash_attention kernels.
 
     Decode (seq_q = 1) takes block_q = 1, the decode kernel, at
@@ -142,11 +154,36 @@ def select_flash_blocks(seq_q: int, seq_k: int, head_dim: int, *,
     there: bk only sets how many keys each warp keeps in flight (bk / 16)
     against how many CTAs fit an SM, and the rule is the measured fastest.
 
-    Prefill takes the tiled kernel's tile with the fewest (q-tile,
-    KV-tile) steps whose shared memory times the stage count fits one CTA
-    — the degenerate (single-level) instance of eq. 9, counting K and V in
-    ``bytes_el`` bytes, the dtype the kernel is given; ties go to the
-    least masked tail.
+    Prefill runs the prefill kernel on one of its (bq, bk) tiles, bq >= 16.
+    Its CTA's shared memory (`kernel.smem_bytes`: the q tile and the
+    two-slot KV ring, K and V in ``bytes_el`` bytes) sets how many CTAs an
+    SM holds, ``budget // smem_bytes``. Among the tiles that leave at least
+    2 (where any does) with bk <= ``PREFILL_MAX_BK``, it takes the fewest
+    (q-tile, KV-tile) steps; ties go to the least masked tail. When
+    ``batch_heads`` (B * H) is given and that tile's grid, ``batch_heads *
+    ceil(seq_q / bq)`` CTAs, fills less than half the card's SMs, it takes
+    the largest bq whose grid fills half (then the fewest steps). So a
+    prefill of 33 rows or more runs 64 x 64 unless its grid is that small.
+
+    Read off `chip_smoke.py`'s prefill sweep (every tile, causal; ms in
+    two runs, run 1 / run 2, on an NVIDIA H100 80GB HBM3 at 700 W;
+    PERF.md, Findings):
+      (b, L, h, hd) (1, 4096, 32, 128): 64 x 64 the fastest, float32
+        1.7750 / 1.7584, bfloat16 0.6815 / 0.6813; 64 x 128 (one resident
+        CTA in float32, two in bfloat16) 2.1506 / 2.1483 and 0.7631 /
+        0.7745;
+      (2, 264, 8, 128), 80 CTAs at bq 64: 64 x 64 the fastest, float32
+        0.0325 / 0.0325, bfloat16 0.0175 / 0.0174; 32 x 64 (144 CTAs)
+        0.0360 / 0.0362 and 0.0192 / 0.0194;
+      (1, 64, 36, 64), 36 CTAs at bq 64: 32 x 64 (72 CTAs) the fastest,
+        float32 0.0101 / 0.0101, bfloat16 0.0089 / 0.0087; 64 x 64
+        0.0107 / 0.0109 and 0.0095 / 0.0093;
+      (1, 128 | 256 | 512, 36, 64): float32 64 x 64 the fastest at 128
+        (0.0130 / 0.0132) and 256 (0.0196 / 0.0197); at 512 64 x 128
+        0.0360 / 0.0363 against 64 x 64's 0.0368 / 0.0367 (+2.1 / +1.2 %,
+        the float32 cell the rule misses; bk 128 loses 7-8 % at 128 and
+        256). bfloat16 64 x 64 the fastest at 512; 32 x 64 (144 and 288
+        CTAs) beats it at 128 by 3.8 / 1.7 % and at 256 by 5.0 / 5.3 %.
     """
     if not 1 <= head_dim <= flash_kernel.MAX_HEAD_DIM:
         raise ValueError(f"head dim {head_dim} outside the kernel's "
@@ -162,17 +199,24 @@ def select_flash_blocks(seq_q: int, seq_k: int, head_dim: int, *,
             raise ValueError(f"the decode kernel's {need} bytes of shared "
                              f"memory exceed {budget}")
         return 1, bk
-    best, best_key = None, None
-    for bq in flash_kernel.BQ_TILES:
-        for bk in flash_kernel.BK_TILES:
-            ws = flash_kernel.smem_bytes(bq, bk, head_dim, bytes_el)
-            if flash_kernel.STAGES * ws > budget:
-                continue
-            nq, nk = math.ceil(seq_q / bq), math.ceil(seq_k / bk)
-            key = (nq * nk, nq * bq + nk * bk)
-            if best_key is None or key < best_key:
-                best, best_key = (bq, bk), key
-    if best is None:
+    ctas = {(bq, bk): budget // flash_kernel.smem_bytes(bq, bk, head_dim,
+                                                        bytes_el)
+            for bq in flash_kernel.BQ_TILES if bq > 1
+            for bk in flash_kernel.BK_TILES if bk <= PREFILL_MAX_BK}
+    pool = [t for t, n in ctas.items() if n >= 2] or \
+        [t for t, n in ctas.items() if n >= 1]
+    if not pool:
         raise ValueError(f"no flash tile fits {budget} bytes of shared "
                          f"memory at head dim {head_dim}")
+
+    def steps(tile):
+        nq, nk = math.ceil(seq_q / tile[0]), math.ceil(seq_k / tile[1])
+        return nq * nk, nq * tile[0] + nk * tile[1]
+    best = min(pool, key=steps)
+    if batch_heads is not None:
+        half = device_sms() / 2
+        fills = [t for t in pool
+                 if batch_heads * math.ceil(seq_q / t[0]) >= half]
+        if fills and batch_heads * math.ceil(seq_q / best[0]) < half:
+            best = min(fills, key=lambda t: (-t[0], steps(t)))
     return best

@@ -161,6 +161,11 @@ def run(budget_s: float = 45.0, quick: bool = False, reduced: bool = False,
             "max_rel_err": rep.max_rel_err,
             "paths": sorted({op.path for op in plan.ops}),
             "kernels": sorted({op.kernel for op in plan.ops}),
+            # the attention ops as run: shape, bridge blocks, count, time
+            "flash_ops": [{"name": op.name, "spec": op.spec,
+                           "count": op.count, "measured_s": op.measured_s}
+                          for op in plan.ops
+                          if op.kernel == "flash_attention"],
         })
         table.append([
             aid, sname, rep.n_ops, rep.n_unique,

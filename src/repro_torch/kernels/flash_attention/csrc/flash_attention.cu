@@ -9,13 +9,15 @@
 // both kernels here read the same (b*H + h) rows through strides instead,
 // so the fold costs no copy. Two kernels share one entry point: a launch
 // with block_q = 1 runs the decode kernel, block_q in {16, 32, 64} the
-// tiled one.
+// prefill kernel.
 //
 // What bounds it on an H100: the executor's decode step (B*H = 4096 rows,
 // one query against a 512-entry f32 cache, hd = 128) does 2 flops per K/V
 // element it reads, far under the card's ~20 f32 flops per byte, so it is
-// bound by reading K and V once (2.15 GB). Causal prefill at long L does
-// O(L) work per byte and turns bound by arithmetic.
+// bound by reading K and V once (2.15 GB). Prefill does 4 * hd flops per
+// (query, visible key) pair against 4 * hd elements per row moved: bound by
+// the tensor cores' rate at long L (causal L 4096: 137 GFLOP, 0.14 ms at
+// the bf16 peak) and by the bytes only at short L (L 264: 2.2 GFLOP).
 //
 // Decode kernel (block_q = 1), written to stream K and V:
 //   * one CTA of 4 warps per (b*H + h, query row); chunk c of U = bk / 32
@@ -46,172 +48,445 @@
 // With a few KB of shared memory per CTA, registers set the occupancy
 // (chip_smoke.py prints both). No split-KV pass: path A has 4,096 rows.
 //
-// Tiled kernel (block_q in {16, 32, 64}), simple first:
-//   * one CTA of 128 threads per (b*H + h, q-tile of BQ rows); a loop over
-//     KV tiles of BK rows replaces the TPU's sequential KV grid axis;
-//   * the q tile is held in shared memory as f32, K and V tiles in the
-//     input type (K rows padded by one 32-bit word so the 32 threads of a
-//     warp, each on its own key, hit 32 different banks);
-//   * scores S = (q . k) * scale go to shared memory; one warp per row
-//     takes the running max, rescales and sums p = exp(s - m) in f32;
-//   * thread d owns output column d of every q row in registers and adds
-//     p @ V with the rescale alpha = exp(m_prev - m_new);
-//   * causal: KV tiles wholly past the last query of the tile are skipped,
-//     in-range masked scores are -1e30 as in the reference; keys past Lk
-//     (a ragged tail) get p = 0 exactly, and query rows past Lq are not
-//     stored, so no length has to divide the tiles.
-// Pipelined loads (cp.async / TMA) and tensor cores for the tiled kernel
-// are later work.
-
+// Prefill kernel (block_q in {16, 32, 64}), on the tensor cores:
+//   * one CTA of BQ / 16 warps per (b*H + h, q tile of BQ rows); warp w owns
+//     query rows 16w .. 16w+15 of the tile. A loop over KV tiles of BK keys
+//     replaces the TPU's sequential KV grid axis. The score tile S = q.K^T
+//     (16 x BK per warp) and the output accumulator (16 x hd) stay in
+//     registers as mma.sync fragments; the online softmax runs per row in
+//     registers (a 4-lane shuffle for the max and, at the end, the sum;
+//     ex2.approx on scores scaled by sm_scale * log2(e)) and rescales the
+//     accumulator there. No score passes through shared memory;
+//   * bfloat16: q.K^T on mma.sync m16n8k16 (bf16 in, f32 sums: exact
+//     products). P.V splits p into p_hi = bf16(p) and p_lo = bf16(p - p_hi)
+//     and issues both against each V fragment, keeping p to ~16 bits:
+//     bf16(p) alone reads ~2e-3 from the f32 oracle, over the executor's
+//     tolerance. The score accumulator of one key pair of n8 tiles is the
+//     A operand of P.V as it stands (FA2's register reuse);
+//   * float32: both products on mma.sync m16n8k8 TF32. q.K^T is 3xTF32
+//     (hi.hi + hi.lo + lo.hi, hi the top 10 mantissa bits, lo the rest,
+//     each cut to TF32 by the MMA): single-pass TF32 there misses the
+//     tolerance's half on large
+//     scores (inputs x30: ~1.5e-3), the split keeps ~21 bits. P.V is one
+//     TF32 pass (~2.5e-4), p and V rounded to nearest, ties away (as
+//     cvt.rna, in two integer operations: sm_90a expands the cvt into a
+//     compare-and-select sequence). The accumulator of m16n8k8 (lane t
+//     holds keys 2t, 2t+1) is not the A layout (keys t, t+4); the k slots
+//     are permuted instead, slot t <-> key 2t and slot t+4 <-> key 2t+1, so
+//     the V fragment reads rows 2t and 2t+1 and P needs no shuffle;
+//   * shared memory: the q tile, then a ring of two KV slots, K_j in one
+//     and V_j in the other, all in the input type with hd zero-padded to
+//     HD (64 or 128, the MMAs' k). Tiles arrive by 16-byte cp.async: V_j's
+//     copy overlaps q.K_j^T and the softmax, K_{j+1}'s copy overlaps P.V_j,
+//     two barriers per KV tile. Rows are 16-byte chunks XOR-swizzled by
+//     (row % 8), no padding, so every ldmatrix phase (and the float32 V
+//     fragment's scalar loads) hits 32 distinct banks. Operands that are not
+//     16-byte aligned (an offset view, or hd * bytes not a multiple of 16)
+//     take masked synchronous loads into the same layout;
+//   * masks as the reference: causal in-range masked scores are -1e30 (so a
+//     fully masked row cannot make NaN), KV tiles wholly past the tile's
+//     last query are skipped, and a warp skips a tile wholly past its own
+//     last row; keys past Lk get p = 0 exactly; rows past Lq are not
+//     stored; output acc / max(l, 1e-20). Causal q tiles run heaviest
+//     first, so the grid's last wave is the light ones.
+// Registers bound the occupancy with shared memory (chip_smoke.py prints
+// both at every tile); the bridge picks a tile that leaves two CTAs per SM.
+// wgmma and TMA are later work.
+//
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // decode CTA
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxHeadDim = 128;
+constexpr int kSlots = 2;      // prefill KV ring: K in one slot, V in the other
 constexpr float kNegInf = -1e30f;  // the reference's mask value
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// ---- prefill kernel -------------------------------------------------------
+
+// Dynamic shared memory of the prefill kernel: q [BQ][HD], then the ring's
+// K slot [BK][HD] and V slot [BK][HD], in the input type.
+template <int BQ, int BK, int HD, typename T>
+constexpr size_t prefill_smem_bytes() {
+  return sizeof(T) * (size_t)HD * (BQ + kSlots * BK);
 }
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
   return v;
 }
 
-// Shared memory layout, in this order: Qs[BQ*hd] f32, Ss[BQ*BK] f32,
-// m[BQ], l[BQ], alpha[BQ] f32, Ks[BK*(hd+pad)] T, Vs[BK*hd] T.
-template <int BQ, int BK, typename T>
-size_t smem_bytes(int hd) {
-  constexpr int pad = 4 / sizeof(T);
-  return sizeof(float) * ((size_t)BQ * hd + BQ * BK + 3 * BQ) +
-         sizeof(T) * ((size_t)BK * (hd + pad) + (size_t)BK * hd);
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int BQ, int BK, typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int H,
-                       int Lq, int Lk, int hd, float sm_scale, int causal) {
-  constexpr int pad = 4 / sizeof(T);
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* Ss = Qs + BQ * hd;
-  float* m_s = Ss + BQ * BK;
-  float* l_s = m_s + BQ;
-  float* a_s = l_s + BQ;
-  T* Ks = reinterpret_cast<T*>(a_s + BQ);
-  const int ldk = hd + pad;
-  T* Vs = Ks + BK * ldk;
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// float32 -> TF32, round to nearest with ties away from zero (what
+// cvt.rna.tf32.f32 gives, in two integer operations: sm_90a expands the cvt
+// into a compare-and-select sequence), as a 32-bit pattern
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// the two TF32 halves of a float32 held as bits: hi keeps the top 10
+// mantissa bits and lo = x - hi is exact in f32; the MMA reads lo's top
+// 10 bits (TF32 operands drop the low 13), so x = hi + lo to ~21 bits
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = x & 0xffffe000u;
+  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi));
+}
+
+// 2^x on the SFU (ex2.approx: ~2 ulp; results under 2^-126 flush to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// (a, b) -> bf16 pairs hi = bf16(a, b) and lo = bf16(a - hi.a, b - hi.b),
+// a in the low half as the MMA fragments want the lower column
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - __low2float(h),
+                                                 b - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// 16 bytes of one row from element c0 on, elements at or past hd (or the
+// whole chunk when the row is out of range) zero: the masked load.
+template <typename T>
+__device__ __forceinline__ uint4 load_chunk_masked(const T* rowp, int c0,
+                                                   int hd, bool row_in) {
+  using Bits = typename std::conditional<sizeof(T) == 4, uint32_t,
+                                         uint16_t>::type;
+  constexpr int kCE = 16 / sizeof(T);
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  if (row_in) {
+    const Bits* p = reinterpret_cast<const Bits*>(rowp);
+#pragma unroll
+    for (int e = 0; e < kCE; ++e)
+      if (c0 + e < hd)
+        w[e * sizeof(T) / 4] |= uint32_t(p[c0 + e])
+                                << (8 * ((e * sizeof(T)) % 4));
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Rows r0 .. r0+ROWS-1 of one (b*H + h) stream into a tile [ROWS][HD] at
+// dst: row r's 16-byte chunk c lands at r * RB + ((c ^ (r % 8)) * 16). Rows
+// at or past nrows and columns at or past hd are zero. Aligned operands
+// take cp.async (hd * bytes % 16 == 0: a chunk is all in or all out), the
+// rest a rolled loop of masked loads.
+template <int ROWS, int HD, int NT, typename T>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const T* src,
+                                          size_t stride, int r0, int nrows,
+                                          int hd, bool vec, int tid) {
+  constexpr int kCE = 16 / sizeof(T);   // elements per chunk
+  constexpr int kCPR = HD / kCE;         // chunks per row: 8 .. 32
+  constexpr int kRB = HD * (int)sizeof(T);
+  constexpr int kN = ROWS * kCPR / NT;   // chunks per thread
+  static_assert(kN * NT == ROWS * kCPR, "the tile splits evenly");
+  if (vec) {
+    const uint32_t base = smem_u32(dst);
+#pragma unroll 4
+    for (int i = 0; i < kN; ++i) {
+      const int idx = tid + i * NT, r = idx / kCPR, c = idx % kCPR;
+      const bool in = r0 + r < nrows && c * kCE < hd;
+      const T* p = in ? src + (size_t)(r0 + r) * stride + c * kCE : src;
+      cp_async16(base + r * kRB + ((c ^ (r & 7)) << 4), p, in ? 16 : 0);
+    }
+  } else {
+#pragma unroll 1
+    for (int i = 0; i < kN; ++i) {
+      const int idx = tid + i * NT, r = idx / kCPR, c = idx % kCPR;
+      *reinterpret_cast<uint4*>(dst + r * kRB + ((c ^ (r & 7)) << 4)) =
+          load_chunk_masked(src + (size_t)(r0 + r) * stride, c * kCE, hd,
+                            r0 + r < nrows);
+    }
+  }
+}
+
+template <int BQ, int BK, int HD, typename T>
+__global__ void __launch_bounds__(2 * BQ)
+flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ o, int H,
+                     int Lq, int Lk, int hd, float sm_scale, int causal) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int NT = 2 * BQ;               // BQ / 16 warps
+  constexpr int RB = HD * (int)sizeof(T);  // bytes per shared row
+  constexpr int NS = BK / 8;               // n8 tiles of S (keys)
+  constexpr int NO = HD / 8;               // n8 tiles of O (columns)
+  constexpr int KS = RB / 32;              // k steps of q.K^T: 2 chunks each
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* q_s = smem;
+  unsigned char* k_s = q_s + BQ * RB;
+  unsigned char* v_s = k_s + BK * RB;
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;   // the fragments' row and column
   const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int q0 = blockIdx.y * BQ;
-  const size_t row = (size_t)H * hd;  // elements between positions l, l+1
+  const int b = bh / H, h = bh % H;
+  const int qt = causal ? (int)gridDim.y - 1 - (int)blockIdx.y
+                        : (int)blockIdx.y;
+  const int q0 = qt * BQ;
+  const int qw = q0 + 16 * warp;           // this warp's first query row
+  const size_t row = (size_t)H * hd;       // elements between positions
   const T* qb = q + ((size_t)b * Lq * H + h) * hd;
   const T* kb = k + ((size_t)b * Lk * H + h) * hd;
   const T* vb = v + ((size_t)b * Lk * H + h) * hd;
   T* ob = o + ((size_t)b * Lq * H + h) * hd;
-
-  for (int idx = tid; idx < BQ * hd; idx += kThreads) {
-    const int i = idx / hd, d = idx % hd;
-    Qs[idx] = (q0 + i < Lq) ? to_f32(qb[(size_t)(q0 + i) * row + d]) : 0.f;
-  }
-  for (int i = tid; i < BQ; i += kThreads) {
-    m_s[i] = kNegInf;
-    l_s[i] = 0.f;
-  }
-  float acc[BQ];
-#pragma unroll
-  for (int i = 0; i < BQ; ++i) acc[i] = 0.f;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) |
+                          reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v);
+  const bool vec = (hd * sizeof(T)) % 16 == 0 && bases % 16 == 0;
 
   // causal: keys at or past q0 + BQ are masked for every row of this tile
   const int kv_end = causal ? min(Lk, q0 + BQ) : Lk;
-  __syncthreads();
+  const int ntiles = (kv_end + BK - 1) / BK;
+  load_tile<BQ, HD, NT, T>(q_s, qb, row, q0, Lq, hd, vec, tid);
+  if (ntiles > 0) load_tile<BK, HD, NT, T>(k_s, kb, row, 0, Lk, hd, vec, tid);
+  cp_async_commit();
 
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    for (int idx = tid; idx < BK * hd; idx += kThreads) {
-      const int j = idx / hd, d = idx % hd;
-      const bool in = k0 + j < Lk;
-      Ks[j * ldk + d] = in ? kb[(size_t)(k0 + j) * row + d] : from_f32<T>(0.f);
-      Vs[j * hd + d] = in ? vb[(size_t)(k0 + j) * row + d] : from_f32<T>(0.f);
-    }
-    __syncthreads();
+  // ldmatrix lane addresses: a base plus compile-time offsets, the chunk
+  // XOR-swizzled by the row's (row % 8). q rows (and V's keys) are
+  // lane % 16 with chunk 2j + lane / 16, K keys 8 * (lane / 16) + lane % 8
+  // with chunk 2j + (lane / 8) % 2; as j only moves bits 1-2 of the chunk,
+  // (2j + x) ^ r = (x ^ r) ^ 2j: a per-lane offset XOR (j % 4) << 5 bytes
+  const int r8 = lane & 7;
+  const uint32_t xq = ((lane >> 4) ^ r8) << 4;
+  const uint32_t xk = (((lane >> 3) & 1) ^ r8) << 4;
+  const uint32_t aq = smem_u32(q_s) + (16 * warp + (lane & 15)) * RB;
+  const uint32_t ak = smem_u32(k_s) + (8 * (lane >> 4) + r8) * RB;
+  // V: bf16 by ldmatrix.trans (keys 8 * ((lane / 8) % 2) + lane % 8, as
+  // q's chunks); float32 by scalar loads of rows 2t and 2t + 1, column
+  // 8n + g: chunk 2n + g / 4, swizzled by 2t (row 2t + 1: one more, bit 4
+  // of the byte offset), word g % 4
+  const uint32_t av = kF32 ? smem_u32(v_s) + 2 * t * RB
+                           : smem_u32(v_s) + (8 * ((lane >> 3) & 1) + r8) * RB;
+  const uint32_t xv = (t << 5) | ((g >> 2) << 4) | ((g & 3) << 2);
 
-    for (int idx = tid; idx < BQ * BK; idx += kThreads) {
-      const int i = idx / BK, j = idx % BK;
-      float s = -INFINITY;  // key past Lk: p = 0 below
-      if (k0 + j < Lk) {
-        const float* qi = Qs + i * hd;
-        const T* kj = Ks + j * ldk;
-        float dot = 0.f;
-        for (int d = 0; d < hd; ++d) dot = fmaf(qi[d], to_f32(kj[d]), dot);
-        s = dot * sm_scale;
-        if (causal && q0 + i < k0 + j) s = kNegInf;
-      }
-      Ss[idx] = s;
-    }
-    __syncthreads();
-
-    for (int i = warp; i < BQ; i += kThreads / 32) {
-      float mx = -INFINITY;
-      for (int j = lane; j < BK; j += 32) mx = fmaxf(mx, Ss[i * BK + j]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[i];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = lane; j < BK; j += 32) {
-        const float s = Ss[i * BK + j];
-        const float p = (s == -INFINITY) ? 0.f : expf(s - m_new);
-        Ss[i * BK + j] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        l_s[i] = l_s[i] * alpha + sum;
-        m_s[i] = m_new;
-        a_s[i] = alpha;
-      }
-    }
-    __syncthreads();
-
-    if (tid < hd) {
+  float acc[NO][4];
 #pragma unroll
-      for (int i = 0; i < BQ; ++i) acc[i] *= a_s[i];
-      for (int j = 0; j < BK; ++j) {
-        const float vj = to_f32(Vs[j * hd + tid]);
+  for (int n = 0; n < NO; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf;  // rows g and g + 8 of the warp
+  float l0 = 0.f, l1 = 0.f;          // this lane's share of the row sums
+  const float sl2 = sm_scale * kLog2e;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * BK;
+    cp_async_wait_all();
+    __syncthreads();  // K_it (and q) in; every warp is done with V_{it-1}
+    load_tile<BK, HD, NT, T>(v_s, vb, row, k0, Lk, hd, vec, tid);
+    cp_async_commit();
+    // causal: a warp whose rows all precede the tile's first key skips it
+    const bool active = !causal || k0 <= qw + 15;
+    float s[NS][4];
+    if (active) {
 #pragma unroll
-        for (int i = 0; i < BQ; ++i) acc[i] = fmaf(Ss[i * BK + j], vj, acc[i]);
+      for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const uint32_t co = (kk >> 2) * 128;
+        uint32_t a[4];
+        ldmatrix_x4(a, aq + co + (xq ^ ((kk & 3) << 5)));
+        if constexpr (kF32) {
+          uint32_t ah[4], al[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split_tf32(a[e], ah[e], al[e]);
+#pragma unroll
+          for (int np = 0; np < NS / 2; ++np) {
+            uint32_t bb[4], kh[4], kl[4];
+            ldmatrix_x4(bb, ak + np * 16 * RB + co + (xk ^ ((kk & 3) << 5)));
+#pragma unroll
+            for (int e = 0; e < 4; ++e) split_tf32(bb[e], kh[e], kl[e]);
+            mma_tf32(s[2 * np], al, kh[0], kh[1]);
+            mma_tf32(s[2 * np], ah, kl[0], kl[1]);
+            mma_tf32(s[2 * np], ah, kh[0], kh[1]);
+            mma_tf32(s[2 * np + 1], al, kh[2], kh[3]);
+            mma_tf32(s[2 * np + 1], ah, kl[2], kl[3]);
+            mma_tf32(s[2 * np + 1], ah, kh[2], kh[3]);
+          }
+        } else {
+#pragma unroll
+          for (int np = 0; np < NS / 2; ++np) {
+            uint32_t bb[4];
+            ldmatrix_x4(bb, ak + np * 16 * RB + co + (xk ^ ((kk & 3) << 5)));
+            mma_bf16(s[2 * np], a, bb[0], bb[1]);
+            mma_bf16(s[2 * np + 1], a, bb[2], bb[3]);
+          }
+        }
+      }
+      // scale into the log2 domain; mask the ragged tail and the diagonal
+      if (k0 + BK > Lk || (causal && k0 + BK - 1 > qw)) {
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = k0 + 8 * n + 2 * t + (e & 1);
+            const int i = qw + g + 8 * (e >> 1);
+            s[n][e] = j >= Lk ? -INFINITY                     // p = 0 exactly
+                      : causal && j > i ? kNegInf : s[n][e] * sl2;
+          }
+      } else {
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] *= sl2;
+      }
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float alpha0 = fast_exp2(m0 - mx0), alpha1 = fast_exp2(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      l0 *= alpha0;
+      l1 *= alpha1;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        s[n][0] = fast_exp2(s[n][0] - mx0);
+        s[n][1] = fast_exp2(s[n][1] - mx0);
+        s[n][2] = fast_exp2(s[n][2] - mx1);
+        s[n][3] = fast_exp2(s[n][3] - mx1);
+        l0 += s[n][0] + s[n][1];
+        l1 += s[n][2] + s[n][3];
+      }
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        acc[n][0] *= alpha0;
+        acc[n][1] *= alpha0;
+        acc[n][2] *= alpha1;
+        acc[n][3] *= alpha1;
       }
     }
-    __syncthreads();
+    cp_async_wait_all();
+    __syncthreads();  // V_it in; every warp is done with K_it
+    if (it + 1 < ntiles)
+      load_tile<BK, HD, NT, T>(k_s, kb, row, k0 + BK, Lk, hd, vec, tid);
+    cp_async_commit();
+    if (active) {
+      if constexpr (kF32) {
+#pragma unroll
+        for (int kk = 0; kk < NS; ++kk) {  // 8 keys: slot t <-> key 2t
+          const uint32_t a[4] = {tf32(s[kk][0]), tf32(s[kk][2]),
+                                 tf32(s[kk][1]), tf32(s[kk][3])};
+#pragma unroll
+          for (int n = 0; n < NO; ++n) {
+            const uint32_t at = av + kk * 8 * RB + (n >> 2) * 128 +
+                                (xv ^ ((n & 3) << 5));
+            mma_tf32(acc[n], a, tf32(ld_shared_f32(at)),
+                     tf32(ld_shared_f32((at + RB) ^ 16)));
+          }
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < NS / 2; ++kk) {  // 16 keys
+          uint32_t ph[4], pl[4];
+          split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+          split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+          split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+          split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+          for (int np = 0; np < NO / 2; ++np) {
+            uint32_t bb[4];
+            ldmatrix_x4_trans(bb, av + kk * 16 * RB + (np >> 2) * 128 +
+                                      (xq ^ ((np & 3) << 5)));
+            mma_bf16(acc[2 * np], pl, bb[0], bb[1]);
+            mma_bf16(acc[2 * np], ph, bb[0], bb[1]);
+            mma_bf16(acc[2 * np + 1], pl, bb[2], bb[3]);
+            mma_bf16(acc[2 * np + 1], ph, bb[2], bb[3]);
+          }
+        }
+      }
+    }
   }
+  cp_async_wait_all();
 
-  if (tid < hd) {
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float r0 = 1.f / fmaxf(l0, 1e-20f), r1 = 1.f / fmaxf(l1, 1e-20f);
+  const int i0 = qw + g, i1 = i0 + 8;
 #pragma unroll
-    for (int i = 0; i < BQ; ++i)
-      if (q0 + i < Lq)
-        ob[(size_t)(q0 + i) * row + tid] = from_f32<T>(acc[i] / fmaxf(l_s[i], 1e-20f));
+  for (int n = 0; n < NO; ++n) {
+    const int c = 8 * n + 2 * t;
+    if (i0 < Lq) {
+      if (c < hd) ob[(size_t)i0 * row + c] = from_f32<T>(acc[n][0] * r0);
+      if (c + 1 < hd) ob[(size_t)i0 * row + c + 1] = from_f32<T>(acc[n][1] * r0);
+    }
+    if (i1 < Lq) {
+      if (c < hd) ob[(size_t)i1 * row + c] = from_f32<T>(acc[n][2] * r1);
+      if (c + 1 < hd) ob[(size_t)i1 * row + c + 1] = from_f32<T>(acc[n][3] * r1);
+    }
   }
 }
+
+// ---- decode kernel --------------------------------------------------------
 
 // Four consecutive elements of one row, as the decode kernel's lanes hold
 // them: loaded raw (so the load stays in flight until first use), widened
@@ -408,7 +683,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // Every kernel of the entry point has this signature; `Pick` is one
-// instantiation with the dynamic shared memory it launches with.
+// instantiation with the block size and dynamic shared memory it launches
+// with.
 template <typename T>
 using KernelFn = void (*)(const T*, const T*, const T*, T*, int, int, int,
                           int, float, int);
@@ -417,16 +693,27 @@ template <typename T>
 struct Pick {
   KernelFn<T> fn;
   size_t bytes;
+  int threads;
 };
+
+// hd pads to 64 or 128 in shared memory: the two head-dim instances
+template <int BQ, int BK, typename T>
+Pick<T> pick_hd(int hd) {
+  if (hd <= 64)
+    return {flash_prefill_kernel<BQ, BK, 64, T>,
+            prefill_smem_bytes<BQ, BK, 64, T>(), 2 * BQ};
+  return {flash_prefill_kernel<BQ, BK, 128, T>,
+          prefill_smem_bytes<BQ, BK, 128, T>(), 2 * BQ};
+}
 
 template <int BQ, typename T>
 Pick<T> pick_bk(int bk, int hd) {
   switch (bk) {
-    case 32: return {flash_attention_kernel<BQ, 32, T>, smem_bytes<BQ, 32, T>(hd)};
-    case 64: return {flash_attention_kernel<BQ, 64, T>, smem_bytes<BQ, 64, T>(hd)};
-    case 128: return {flash_attention_kernel<BQ, 128, T>, smem_bytes<BQ, 128, T>(hd)};
+    case 32: return pick_hd<BQ, 32, T>(hd);
+    case 64: return pick_hd<BQ, 64, T>(hd);
+    case 128: return pick_hd<BQ, 128, T>(hd);
   }
-  return {nullptr, 0};
+  return {nullptr, 0, 0};
 }
 
 // The kernel a (block_q, block_k) launch runs; fn is null outside the set.
@@ -435,16 +722,16 @@ Pick<T> pick(int bq, int bk, int hd) {
   switch (bq) {
     case 1:
       switch (bk) {  // U = bk / 32 keys per chunk
-        case 32: return {flash_decode_kernel<1, T>, decode_smem_bytes(hd)};
-        case 64: return {flash_decode_kernel<2, T>, decode_smem_bytes(hd)};
-        case 128: return {flash_decode_kernel<4, T>, decode_smem_bytes(hd)};
+        case 32: return {flash_decode_kernel<1, T>, decode_smem_bytes(hd), kThreads};
+        case 64: return {flash_decode_kernel<2, T>, decode_smem_bytes(hd), kThreads};
+        case 128: return {flash_decode_kernel<4, T>, decode_smem_bytes(hd), kThreads};
       }
       break;
     case 16: return pick_bk<16, T>(bk, hd);
     case 32: return pick_bk<32, T>(bk, hd);
     case 64: return pick_bk<64, T>(bk, hd);
   }
-  return {nullptr, 0};
+  return {nullptr, 0, 0};
 }
 
 // Past 48 KB a launch needs the opt-in, which CUDA keeps per device: set
@@ -466,7 +753,7 @@ cudaError_t launch(int bq, int bk, const void* q, const void* k,
   if (e != cudaSuccess) return e;
   const KernelFn<T> fn = p.fn;
   dim3 grid(B * H, (Lq + bq - 1) / bq);
-  fn<<<grid, kThreads, p.bytes, stream>>>(
+  fn<<<grid, p.threads, p.bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), H, Lq, Lk, hd, sm_scale,
       causal);
@@ -486,7 +773,7 @@ cudaError_t occupancy(int bq, int bk, int hd, int* ctas_per_sm, int* regs,
   *regs = attr.numRegs;
   *smem = (int)(attr.sharedSizeBytes + p.bytes);
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, p.fn,
-                                                       kThreads, p.bytes);
+                                                       p.threads, p.bytes);
 }
 
 }  // namespace
@@ -500,7 +787,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int Lq, int Lk, int hd, float sm_scale,
                                       int causal, int bq, int bk, int is_bf16,
                                       void* stream) {
-  if (hd < 1 || hd > kThreads || bq < 1 || (Lq + bq - 1) / bq > 65535)
+  if (hd < 1 || hd > kMaxHeadDim || bq < 1 || (Lq + bq - 1) / bq > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
@@ -516,7 +803,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 extern "C" int flash_attention_occupancy(int bq, int bk, int hd, int is_bf16,
                                          int* ctas_per_sm, int* regs,
                                          int* smem_bytes) {
-  if (hd < 1 || hd > kThreads) return cudaErrorInvalidValue;
+  if (hd < 1 || hd > kMaxHeadDim) return cudaErrorInvalidValue;
   if (is_bf16)
     return occupancy<__nv_bfloat16>(bq, bk, hd, ctas_per_sm, regs, smem_bytes);
   return occupancy<float>(bq, bk, hd, ctas_per_sm, regs, smem_bytes);

@@ -15,19 +15,22 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 #: block_q = 1 runs the decode kernel (one query row per CTA, K and V
-#: streamed through registers); 16, 32 and 64 the tiled kernel.
+#: streamed through registers); 16, 32 and 64 the prefill kernel (BQ / 16
+#: warps, 16 query rows each, on the tensor cores).
 BQ_TILES = (1, 16, 32, 64)
-#: In the tiled kernel the KV tile's rows. In the decode kernel a warp's
+#: In the prefill kernel the KV tile's rows. In the decode kernel a warp's
 #: chunk is bk / 32 keys and each warp keeps two chunks in flight, so a
 #: CTA has bk / 4 keys in flight.
 BK_TILES = (32, 64, 128)
-#: Tiled: one thread per output column of 128 threads; decode: four
-#: columns per lane of a 32-lane warp.
+#: Prefill: hd is zero-padded in shared memory to the smallest of these
+#: (the template instances); decode: four columns per lane of a warp.
+HEAD_DIM_TILES = (64, 128)
 MAX_HEAD_DIM = 128
-#: Shared-memory buffers per KV tile of the tiled kernel: it loads, then
-#: computes (no software pipeline). The decode kernel stages no K or V in
-#: shared memory; its prefetch of the next chunk is in registers.
-STAGES = 1
+#: Slots of the prefill kernel's KV ring in shared memory: K_j in one, V_j
+#: in the other, so V_j's copy overlaps q.K_j^T and K_{j+1}'s copy P.V_j.
+#: `smem_bytes` counts the whole ring. The decode kernel stages no K or V
+#: in shared memory; its prefetch of the next chunk is in registers.
+STAGES = 2
 #: Warps of the decode kernel's CTA, each on its own share of the keys.
 DECODE_WARPS = 4
 
@@ -35,15 +38,20 @@ DECODE_WARPS = 4
 launches = 0
 
 
+def padded_head_dim(head_dim: int) -> int:
+    """The prefill kernel's head-dim instance: hd zero-padded to it."""
+    return min(t for t in HEAD_DIM_TILES if t >= head_dim)
+
+
 def smem_bytes(bq: int, bk: int, head_dim: int, bytes_el: int) -> int:
-    """Dynamic shared memory of one CTA. Tiled (bq >= 16): the f32 q tile,
-    scores and row statistics, and the K (rows padded by one 32-bit word)
-    and V tiles in the input type. Decode (bq = 1): only each warp's f32
-    accumulator, max and sum for the final merge, whatever bk and dtype."""
+    """Dynamic shared memory of one CTA, as the launch passes it. Prefill
+    (bq >= 16): the q tile [bq][hd'] and the ring's ``STAGES`` KV slots
+    [bk][hd'] in the input type, hd' = `padded_head_dim`. Decode (bq = 1):
+    only each warp's f32 accumulator, max and sum for the final merge,
+    whatever bk and dtype."""
     if bq == 1:
         return 4 * DECODE_WARPS * (head_dim + 2)
-    return 4 * (bq * head_dim + bq * bk + 3 * bq) + \
-        bytes_el * (bk * (head_dim + 4 // bytes_el) + bk * head_dim)
+    return bytes_el * padded_head_dim(head_dim) * (bq + STAGES * bk)
 
 
 def _launcher():

@@ -422,3 +422,99 @@ def test_flash_smem_bytes_match_the_launch(cuda):
                     assert occ["smem_bytes"] == \
                         kernel.smem_bytes(bq, bk, hd, el), (bq, bk, hd, dt)
                     assert occ["ctas_per_sm"] >= 1 and occ["regs"] > 0
+
+
+def _prefill_case(b, lq, lk, h, hd, dtype, seed, q_scale=1.0):
+    g = _gen(seed)
+    mk = lambda l: torch.randn((b, l, h, hd), device="cuda", generator=g)
+    q = (mk(lq) * q_scale).to(dtype)
+    return q, mk(lk).to(dtype), mk(lk).to(dtype)
+
+
+def _prefill_check(q, k, v, causal, tiles=None):
+    """The prefill kernel at every (block_q >= 16, block_k) of the set (or
+    ``tiles``): one launch per call, the input dtype out, finite, within
+    1e-3 of the oracle (half the executor's attention tolerance, the
+    design's contract: 3xTF32 q.K^T in float32, hi/lo P in bfloat16)."""
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    ref = attention_ref(q, k, v, causal=causal)
+    tiles = tiles or [(bq, bk) for bq in kernel.BQ_TILES if bq > 1
+                      for bk in kernel.BK_TILES]
+    for bq, bk in tiles:
+        before = kernel.launches
+        out = kernel.flash_attention_blhd(q, k, v, causal=causal,
+                                          block_q=bq, block_k=bk)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert out.dtype == q.dtype and out.shape == q.shape
+        assert bool(torch.isfinite(out).all()), (bq, bk)
+        rel = (out.double() - ref.double()).norm() / ref.double().norm()
+        assert rel <= 1e-3, (bq, bk, float(rel))
+
+
+@pytest.mark.parametrize("bq", [16, 32, 64])
+@pytest.mark.parametrize("bk", [32, 64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_prefill_kernel_every_tile(cuda, bq, bk, dtype):
+    """Each (block_q, block_k) of the prefill set, causal and not, at
+    lengths no tile divides."""
+    q, k, v = _prefill_case(2, 200, 200, 3, 64, getattr(torch, dtype), 20)
+    for causal in (True, False):
+        _prefill_check(q, k, v, causal, tiles=[(bq, bk)])
+
+
+@pytest.mark.parametrize("lq,lk,causal", [(131, 131, True), (77, 300, False),
+                                          (300, 77, False), (1, 40, True),
+                                          (300, 77, True), (5, 5, True)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_prefill_kernel_ragged_lengths(cuda, lq, lk, causal, dtype):
+    """Ragged Lq and Lk, Lq != Lk both ways, and lengths under one tile."""
+    q, k, v = _prefill_case(1, lq, lk, 2, 64, getattr(torch, dtype), 21)
+    _prefill_check(q, k, v, causal)
+
+
+@pytest.mark.parametrize("hd", [8, 16, 64, 100, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_prefill_kernel_head_dims(cuda, hd, dtype):
+    """Head dims padded with zeros up to the MMA's k and the 64 / 128
+    instance; bfloat16 hd 100 (200-byte rows) takes the masked loads."""
+    q, k, v = _prefill_case(2, 96, 96, 3, hd, getattr(torch, dtype), 22)
+    _prefill_check(q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("offset_bytes", [1, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_prefill_kernel_misaligned_views(cuda, offset_bytes, dtype):
+    """Contiguous views that start off a 16-byte boundary (1 byte rounds
+    up to one element): the prefill kernel must take its masked loads, not
+    fault on a misaligned cp.async."""
+    dt = getattr(torch, dtype)
+    el = torch.tensor([], dtype=dt).element_size()
+    off = max(offset_bytes, el) // el
+    b, l, h, hd = 2, 100, 3, 64
+    g = _gen(23)
+    view = lambda: torch.randn((off + b * l * h * hd,), device=cuda,
+                               generator=g).to(dt)[off:].view(b, l, h, hd)
+    q, k, v = view(), view(), view()
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    _prefill_check(q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_prefill_kernel_large_scores(cuda, causal, dtype):
+    """q scaled by 30: scores far apart, where single-pass TF32 q.K^T would
+    miss 1e-3; causal row 0 sees one key and every later tile of a warp's
+    first rows is masked, with no NaN."""
+    q, k, v = _prefill_case(2, 160, 160, 4, 128, getattr(torch, dtype), 24,
+                            q_scale=30.0)
+    _prefill_check(q, k, v, causal)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_prefill_kernel_path_c_shape(cuda, dtype):
+    """minicpm-2b exec_prefill's attention op (1, 512, 36 heads of 64,
+    causal) at every tile."""
+    q, k, v = _prefill_case(1, 512, 512, 36, 64, getattr(torch, dtype), 25)
+    _prefill_check(q, k, v, causal=True)

@@ -190,11 +190,14 @@ def test_flash_decode_pick_rejects_other_widths():
 
 
 @pytest.mark.parametrize("lq,lk,hd,bytes_el,blocks", [
-    (512, 512, 64, 4, (64, 128)), (264, 264, 16, 4, (64, 128)),
-    (4096, 4096, 128, 2, (64, 128)), (17, 17, 64, 4, (32, 32)),
+    (512, 512, 64, 4, (64, 64)), (264, 264, 16, 4, (64, 64)),
+    (4096, 4096, 128, 2, (64, 64)), (17, 17, 64, 4, (32, 32)),
     (64, 64, 128, 2, (64, 64))])
-def test_flash_prefill_picks_unchanged(lq, lk, hd, bytes_el, blocks):
-    """Prefill keeps the tiled kernel's fewest-steps pick."""
+def test_flash_prefill_picks_the_measured_tile(lq, lk, hd, bytes_el,
+                                               blocks):
+    """Prefill takes the fewest steps among tiles of bk <= 64 that leave
+    two resident CTAs per SM: 64 x 64, the tile the chip's sweep measured
+    fastest, from 33 rows on; shorter prompts the least masked tile."""
     assert select_flash_blocks(lq, lk, hd, bytes_el=bytes_el) == blocks
 
 
