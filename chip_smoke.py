@@ -12,7 +12,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      spills of every instantiation (``-Xptxas -v``; a spill in any kernel
      fails the run); every matmul_int8 and flash_attention launch's shared
      memory, as the library reports it, against ``kernel.smem_bytes``
-     (times ``STAGES`` for matmul_int8); matmul_int8's threads, registers
+     (each kernel's whole ring included); matmul_int8's threads, registers
      and resident CTAs per SM at every tile, the flash prefill kernel's
      registers, shared memory and resident CTAs per SM at every tile for
      hd 128 and 64 in both dtypes, the decode kernel's (the CUDA occupancy
@@ -208,17 +208,17 @@ def phase_build(torch) -> None:
         for bk in mm_kernel.BK_TILES:
             for bn in mm_kernel.BN_TILES:
                 o = mm_kernel.occupancy(bm, bk, bn)
-                want = mm_kernel.STAGES * mm_kernel.smem_bytes(bm, bk, bn)
+                want = mm_kernel.smem_bytes(bm, bk, bn)
                 require(o["smem_bytes"] == want and o["local_bytes"] == 0,
                         f"matmul_int8 {(bm, bk, bn)} launches with "
                         f"{o['smem_bytes']} bytes of shared memory "
-                        f"(STAGES x smem_bytes = {want}) and "
+                        f"(kernel.smem_bytes = {want}) and "
                         f"{o['local_bytes']} bytes of local memory")
                 occ[f"{bm}x{bk}x{bn}"] = (o["threads"], o["regs"],
                                           o["ctas_per_sm"])
     print(f"[build] matmul_int8 (bm x bk x bn): (threads, registers, "
-          f"resident CTAs per SM), no spill, shared memory = STAGES x "
-          f"smem_bytes at every tile: {occ}", flush=True)
+          f"resident CTAs per SM), no spill, shared memory = "
+          f"kernel.smem_bytes at every tile: {occ}", flush=True)
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     prefill = [(bq, bk) for bq in fa_kernel.BQ_TILES if bq > 1
                for bk in fa_kernel.BK_TILES]
@@ -543,6 +543,7 @@ def flash_rows(torch, plan, out_c, timer) -> list[dict]:
     from repro_torch.kernels.flash_attention.ref import attention_ref
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     # (path, count in that path's plan, op ms there, name, (b, lq, lk, h,
     # hd, causal, dtype, block_q, block_k)); the executor runs float32 at
     # the bridge's blocks, so only that row of a plan op counts for its
@@ -584,7 +585,7 @@ def flash_rows(torch, plan, out_c, timer) -> list[dict]:
         # (b, lq, lk, h, hd, causal) at the bridge's blocks
         cases += [(None, 0, None, "mode", shape + (dt,) + select_flash_blocks(
             shape[1], shape[2], shape[4], bytes_el=el,
-            batch_heads=shape[0] * shape[3])) for shape in (
+            batch_heads=shape[0] * shape[3], n_sms=sms)) for shape in (
             (1, 1024, 1024, 32, 128, True), (1, 4096, 4096, 32, 128, True),
             (1, 1024, 1024, 32, 128, False), (2, 264, 264, 8, 128, True))]
         cases += [(None, 0, None, "prefill sweep",
@@ -647,7 +648,8 @@ def flash_rows(torch, plan, out_c, timer) -> list[dict]:
                      (r["b"], r["lq"], r["h"], r["hd"]) == (b, l, h, hd)}
             fastest = min(sweep, key=sweep.get)
             pick = select_flash_blocks(l, l, hd, bytes_el=4 if dt ==
-                                       "float32" else 2, batch_heads=b * h)
+                                       "float32" else 2, batch_heads=b * h,
+                                       n_sms=sms)
             print(f"[flash sweep] {(b, l, h, hd)} causal {dt}: fastest "
                   f"{fastest} {sweep[fastest]:.4f} ms; bridge pick {pick} "
                   f"{sweep[pick]:.4f} ms "

@@ -65,8 +65,8 @@ from typing import Sequence
 from repro_torch.core import workload as wl
 from repro_torch.core.arch import CimArch
 from repro_torch.core.cache import mapping_from_json
-from repro_torch.core.gpu_bridge import select_blocks_from_mapping, \
-    select_flash_blocks
+from repro_torch.core.gpu_bridge import device_sms, \
+    select_blocks_from_mapping, select_flash_blocks
 
 #: Decode attention replays the step against a synthetic KV cache of the
 #: scenario's sequence length, capped as in the reference (a 32k-entry
@@ -224,7 +224,8 @@ def _flash_op(prefix: str, group: dict, cfg, spec) -> ExecOp | None:
         bidi = prefix.endswith(".xattn") or prefix.endswith(".enc")
         b, causal = 1, not bidi
     # the runner draws float32 operands (`_run_flash`)
-    bq, bk = select_flash_blocks(lq, lk, hd, bytes_el=4, batch_heads=b * h)
+    bq, bk = select_flash_blocks(lq, lk, hd, bytes_el=4, batch_heads=b * h,
+                                 n_sms=device_sms())
     return ExecOp(
         name=f"{prefix}.attention", kernel="flash_attention",
         spec={"b": b, "lq": lq, "lk": lk, "h": h, "hd": hd,

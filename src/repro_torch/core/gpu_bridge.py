@@ -8,11 +8,11 @@ What changes from the TPU bridge:
     becomes membership in the tile set the CUDA kernel instantiates
     (powers of two, `kernels/*/kernel.py`). The kernels mask ragged tails,
     so a block need not divide its dim and nothing is padded;
-  * eq. (9) capacity: a block's shared memory times the kernel's stage
-    count (matmul_int8 keeps a ring of 3) must fit what one CTA may opt
-    into, in place of the pipelined (doubled) working set against VMEM.
-    The int32 / f32 accumulators live in registers on the GPU, not in the
-    on-chip buffer;
+  * eq. (9) capacity: a block's shared memory, the kernel's whole ring
+    included (`kernel.smem_bytes`; matmul_int8 keeps a ring of 3), must
+    fit what one CTA may opt into, in place of the pipelined (doubled)
+    working set against VMEM. The int32 / f32 accumulators live in
+    registers on the GPU, not in the on-chip buffer;
   * the shared-memory default is the H100's (below), never the TPU's VMEM.
 
 The bridge MIP (`select_matmul_blocks`) is off the measured-execution
@@ -69,7 +69,7 @@ def select_blocks_from_mapping(mapping, layer, arch, *,
     DRAM — is the working set MIREDO decided to keep resident, i.e. the CIM
     analogue of a CTA's tile. Each extent is snapped to the kernel's tile
     set and clamped by ``cap``; the blocks are then halved until the
-    kernel's shared memory times its stage count fits one CTA (eq. 9).
+    kernel's shared memory, its ring included, fits one CTA (eq. 9).
 
     ``cap`` bounds every block dim; the measured-execution backend lowers
     it so each op spans several CTAs. The budget is the smaller of the
@@ -103,11 +103,11 @@ def select_blocks_from_mapping(mapping, layer, arch, *,
 
 def fit_blocks(bm: int, bk: int, bn: int, budget: int) -> tuple[int, int, int]:
     """eq. 9 per CTA: halve the largest of (bm, bk, bn) within its tile set
-    until the kernel's ring (``STAGES`` x ``smem_bytes``) fits ``budget``
-    bytes; blocks that fit come back unchanged."""
+    until the kernel's shared memory (``smem_bytes``, the whole ring) fits
+    ``budget`` bytes; blocks that fit come back unchanged."""
     tiles_m, tiles_k, tiles_n = (mm_kernel.BM_TILES, mm_kernel.BK_TILES,
                                  mm_kernel.BN_TILES)
-    while mm_kernel.STAGES * mm_kernel.smem_bytes(bm, bk, bn) > budget:
+    while mm_kernel.smem_bytes(bm, bk, bn) > budget:
         if bm >= max(bk, bn) and bm > min(tiles_m):
             bm = _smaller(tiles_m, bm)
         elif bk >= bn and bk > min(tiles_k):
@@ -134,18 +134,23 @@ DECODE_BLOCK_K = {4: 128, 2: 64}
 #: Largest KV tile the prefill pick takes; see `select_flash_blocks`.
 PREFILL_MAX_BK = 64
 
+#: Streaming multiprocessors of an H100 SXM.
+SMS = 132
+
 
 def device_sms() -> int:
-    """Streaming multiprocessors of the card, else the H100's 132."""
+    """Streaming multiprocessors of the card when a CUDA device is
+    present, else the H100's."""
     if not torch.cuda.is_available():
-        return 132
+        return SMS
     return torch.cuda.get_device_properties(
         torch.cuda.current_device()).multi_processor_count
 
 
 def select_flash_blocks(seq_q: int, seq_k: int, head_dim: int, *,
                         bytes_el: int = 4, smem_bytes: int | None = None,
-                        batch_heads: int | None = None) -> tuple[int, int]:
+                        batch_heads: int | None = None,
+                        n_sms: int | None = None) -> tuple[int, int]:
     """(block_q, block_k) for the flash_attention kernels.
 
     Decode (seq_q = 1) takes block_q = 1, the decode kernel, at
@@ -154,20 +159,20 @@ def select_flash_blocks(seq_q: int, seq_k: int, head_dim: int, *,
     there: bk only sets how many keys each warp keeps in flight (bk / 16)
     against how many CTAs fit an SM, and the rule is the measured fastest.
 
-    Prefill runs the prefill kernel on one of its (bq, bk) tiles, bq >= 16.
-    Its CTA's shared memory (`kernel.smem_bytes`: the q tile and the
-    two-slot KV ring, K and V in ``bytes_el`` bytes) sets how many CTAs an
-    SM holds, ``budget // smem_bytes``. Among the tiles that leave at least
-    2 (where any does) with bk <= ``PREFILL_MAX_BK``, it takes the fewest
-    (q-tile, KV-tile) steps; ties go to the least masked tail. When
-    ``batch_heads`` (B * H) is given and that tile's grid, ``batch_heads *
-    ceil(seq_q / bq)`` CTAs, fills less than half the card's SMs, it takes
-    the largest bq whose grid fills half (then the fewest steps). So a
-    prefill of 33 rows or more runs 64 x 64 unless its grid is that small.
+    Prefill runs the prefill kernel on one of its (bq, bk) tiles, bq >= 16,
+    and needs ``batch_heads`` (B * H) and the card's ``n_sms``. Among the
+    tiles of bk <= ``PREFILL_MAX_BK`` whose CTA (`kernel.smem_bytes`: the q
+    tile and the KV ring in ``bytes_el`` bytes) fits the budget, it takes
+    the fewest (q-tile, KV-tile) steps; ties go to the least masked tail.
+    When that tile's grid, ``batch_heads * ceil(seq_q / bq)`` CTAs, fills
+    less than half of ``n_sms``, it takes the largest bq whose grid fills
+    half (then the fewest steps). So on an H100 a prefill of 33 rows or
+    more runs 64 x 64 unless its grid is that small.
 
     Read off `chip_smoke.py`'s prefill sweep (every tile, causal; ms in
     two runs, run 1 / run 2, on an NVIDIA H100 80GB HBM3 at 700 W;
-    PERF.md, Findings):
+    PERF.md, Findings). bk 128 loses wherever it fits two CTAs as well
+    (bfloat16), so the cap is not a shared-memory limit:
       (b, L, h, hd) (1, 4096, 32, 128): 64 x 64 the fastest, float32
         1.7750 / 1.7584, bfloat16 0.6815 / 0.6813; 64 x 128 (one resident
         CTA in float32, two in bfloat16) 2.1506 / 2.1483 and 0.7631 /
@@ -199,24 +204,24 @@ def select_flash_blocks(seq_q: int, seq_k: int, head_dim: int, *,
             raise ValueError(f"the decode kernel's {need} bytes of shared "
                              f"memory exceed {budget}")
         return 1, bk
-    ctas = {(bq, bk): budget // flash_kernel.smem_bytes(bq, bk, head_dim,
-                                                        bytes_el)
-            for bq in flash_kernel.BQ_TILES if bq > 1
-            for bk in flash_kernel.BK_TILES if bk <= PREFILL_MAX_BK}
-    pool = [t for t, n in ctas.items() if n >= 2] or \
-        [t for t, n in ctas.items() if n >= 1]
-    if not pool:
+    if batch_heads is None or n_sms is None:
+        raise ValueError("a prefill pick needs batch_heads (B * H) and "
+                         "n_sms")
+    fits = [(bq, bk) for bq in flash_kernel.BQ_TILES if bq > 1
+            for bk in flash_kernel.BK_TILES if bk <= PREFILL_MAX_BK and
+            flash_kernel.smem_bytes(bq, bk, head_dim, bytes_el) <= budget]
+    if not fits:
         raise ValueError(f"no flash tile fits {budget} bytes of shared "
                          f"memory at head dim {head_dim}")
 
     def steps(tile):
         nq, nk = math.ceil(seq_q / tile[0]), math.ceil(seq_k / tile[1])
         return nq * nk, nq * tile[0] + nk * tile[1]
-    best = min(pool, key=steps)
-    if batch_heads is not None:
-        half = device_sms() / 2
-        fills = [t for t in pool
-                 if batch_heads * math.ceil(seq_q / t[0]) >= half]
-        if fills and batch_heads * math.ceil(seq_q / best[0]) < half:
-            best = min(fills, key=lambda t: (-t[0], steps(t)))
+
+    def grid(tile):
+        return batch_heads * math.ceil(seq_q / tile[0])
+    best = min(fits, key=steps)
+    fills = [t for t in fits if grid(t) >= n_sms / 2]
+    if fills and grid(best) < n_sms / 2:
+        best = min(fills, key=lambda t: (-t[0], steps(t)))
     return best

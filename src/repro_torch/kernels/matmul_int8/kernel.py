@@ -19,7 +19,7 @@ BM_TILES = (16, 32, 64, 128)
 BN_TILES = (32, 64, 128)
 BK_TILES = (32, 64, 128)
 #: Shared-memory stages of the cp.async ring: two K steps in flight while
-#: the tensor cores work on the third.
+#: the tensor cores work on the third. `smem_bytes` counts the whole ring.
 STAGES = 3
 #: Dynamic shared memory one CTA may opt into on an H100 (227 KB of the
 #: SM's 256 KB); the launch sets the opt-in for every tile past 48 KB.
@@ -30,10 +30,10 @@ launches = 0
 
 
 def smem_bytes(bm: int, bk: int, bn: int) -> int:
-    """Shared memory of one stage of the ring: the int8 x tile [bm][bk] and
-    the w tile [bk][bn], swizzled, unpadded. A launch takes ``STAGES`` of
-    them as dynamic shared memory and nothing else."""
-    return bm * bk + bk * bn
+    """Dynamic shared memory of one CTA, as the launch passes it: ``STAGES``
+    slots of the ring, each the int8 x tile [bm][bk] and the w tile
+    [bk][bn], swizzled, unpadded, and nothing else."""
+    return STAGES * (bm * bk + bk * bn)
 
 
 def split_k(m: int, n: int, k: int, bm: int, bk: int, bn: int,

@@ -13,7 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core.gpu_bridge import (PREFILL_MAX_BK, SMEM_BYTES,
+from repro_torch.core.gpu_bridge import (PREFILL_MAX_BK, SMEM_BYTES, SMS,
                                          select_flash_blocks)
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -165,23 +165,31 @@ def _steps(tile, lq, lk):
     (264, 264, 128, 4), (64, 64, 64, 4), (17, 17, 64, 4),
     (20, 300, 100, 2)])
 def test_prefill_pick_is_occupancy_aware(lq, lk, hd, bytes_el, budget):
-    """The pick leaves at least 2 resident CTAs per SM (``budget //
-    smem_bytes``) where any tile of bk <= PREFILL_MAX_BK does, and no such
-    tile takes fewer (q-tile, KV-tile) steps or, at as many, a shorter
-    masked tail."""
+    """The pick's CTA (`kernel.smem_bytes`, q tile and KV ring) fits the
+    budget, its bk is at most PREFILL_MAX_BK, and no other such tile takes
+    fewer (q-tile, KV-tile) steps or, at as many, a shorter masked tail.
+    B * H = the SM count, so every grid fills the card."""
     pick = select_flash_blocks(lq, lk, hd, bytes_el=bytes_el,
-                               smem_bytes=budget)
-    ctas = lambda t: budget // fa_kernel.smem_bytes(*t, hd, bytes_el)
-    allowed = [t for t in PREFILL_TILES if t[1] <= PREFILL_MAX_BK]
-    floor = 2 if any(ctas(t) >= 2 for t in allowed) else 1
-    assert pick in allowed and ctas(pick) >= floor
-    assert all(_steps(pick, lq, lk) <= _steps(t, lq, lk)
-               for t in allowed if ctas(t) >= floor)
+                               smem_bytes=budget, batch_heads=SMS, n_sms=SMS)
+    fits = [t for t in PREFILL_TILES if t[1] <= PREFILL_MAX_BK and
+            fa_kernel.smem_bytes(*t, hd, bytes_el) <= budget]
+    assert pick in fits
+    assert all(_steps(pick, lq, lk) <= _steps(t, lq, lk) for t in fits)
 
 
 def test_prefill_pick_refuses_a_budget_no_tile_fits():
     with pytest.raises(ValueError, match="no flash tile fits"):
-        select_flash_blocks(512, 512, 128, bytes_el=4, smem_bytes=8_000)
+        select_flash_blocks(512, 512, 128, bytes_el=4, smem_bytes=8_000,
+                            batch_heads=SMS, n_sms=SMS)
+
+
+@pytest.mark.parametrize("given", [{}, {"batch_heads": 36}, {"n_sms": SMS}])
+def test_prefill_pick_needs_the_grid_and_the_sms(given):
+    """A prefill pick depends on B * H and the card's SMs, so both are
+    required; a decode pick needs neither."""
+    with pytest.raises(ValueError, match="batch_heads"):
+        select_flash_blocks(512, 512, 64, bytes_el=4, **given)
+    assert select_flash_blocks(1, 512, 64, bytes_el=4, **given)[0] == 1
 
 
 @pytest.mark.parametrize("lq,h,hd,bytes_el,blocks", [
@@ -189,10 +197,12 @@ def test_prefill_pick_refuses_a_budget_no_tile_fits():
     (128, 36, 64, 4, (64, 64)), (264, 16, 128, 4, (64, 64)),
     (512, 36, 64, 4, (64, 64)), (64, 1, 64, 4, (64, 64))])
 def test_prefill_pick_fills_half_the_sms(lq, h, hd, bytes_el, blocks):
-    """Given B * H, a grid of 64-row tiles that fills less than half of
-    the H100's 132 SMs (path C's exec_train: 36 CTAs) takes the largest
-    block_q that fills half; 72 or 80 CTAs keep 64 x 64, and a grid no
-    tile can widen to half (one head of 64 rows) keeps it too."""
+    """A grid of 64-row tiles that fills less than half of the H100's 132
+    SMs (path C's exec_train: 36 CTAs) takes the largest block_q that
+    fills half; 72 or 80 CTAs keep 64 x 64, and a grid no tile can widen
+    to half (one head of 64 rows) keeps it too. On a card of as many SMs
+    as the 64-row grid has CTAs, every shape keeps 64 x 64."""
     assert select_flash_blocks(lq, lq, hd, bytes_el=bytes_el,
-                               batch_heads=h) == blocks
-    assert select_flash_blocks(lq, lq, hd, bytes_el=bytes_el) == (64, 64)
+                               batch_heads=h, n_sms=SMS) == blocks
+    assert select_flash_blocks(lq, lq, hd, bytes_el=bytes_el, batch_heads=h,
+                               n_sms=h * math.ceil(lq / 64)) == (64, 64)

@@ -16,7 +16,7 @@ from repro_torch.core.arch import default_arch
 from repro_torch.core.baselines import greedy_mapping
 from repro_torch.core.executor import EXEC_BLOCK_CAP
 from repro_torch.core.frontend import extract_workload
-from repro_torch.core.gpu_bridge import (DECODE_BLOCK_K, SMEM_BYTES,
+from repro_torch.core.gpu_bridge import (DECODE_BLOCK_K, SMEM_BYTES, SMS,
                                          device_smem_bytes, fit_blocks,
                                          select_blocks_from_mapping,
                                          select_flash_blocks)
@@ -51,30 +51,30 @@ def test_mapped_blocks_legal_across_reduced_zoo():
         assert bk in mm_kernel.BK_TILES, (layer.name, bk)
         assert bn in mm_kernel.BN_TILES, (layer.name, bn)
         assert max(bm, bk, bn) <= EXEC_BLOCK_CAP
-        assert mm_kernel.STAGES * mm_kernel.smem_bytes(bm, bk, bn) <= \
+        assert mm_kernel.smem_bytes(bm, bk, bn) <= \
             min(SMEM_BYTES, mm_kernel.SMEM_LIMIT)
 
 
 def test_mapped_blocks_shrink_to_fit_a_small_budget():
     """eq. 9: a shared-memory budget below the snapped tile's need halves
-    the blocks (largest first) until stages x bytes fit."""
+    the blocks (largest first) until the whole ring fits."""
     layer = wl.gemm("t.g", 128, 4096, 4096)
     mp = greedy_mapping(layer, ARCH)
     big = select_blocks_from_mapping(mp, layer, ARCH)
     budget = mm_kernel.smem_bytes(*big) // 2
     small = select_blocks_from_mapping(mp, layer, ARCH, smem_bytes=budget)
-    assert mm_kernel.STAGES * mm_kernel.smem_bytes(*small) <= budget
+    assert mm_kernel.smem_bytes(*small) <= budget
     assert small != big
 
 
 def test_every_matmul_tile_fits_the_default_budget():
-    """The kernel's whole ring (STAGES x smem_bytes) fits the H100's opt-in
+    """The kernel's whole ring (``smem_bytes``) fits the H100's opt-in
     shared memory at every tile of the set, 128^3 included, so eq. 9 halves
     nothing unless a caller asks for less."""
     budget = min(mm_kernel.SMEM_LIMIT, device_smem_bytes())
     for blocks in itertools.product(mm_kernel.BM_TILES, mm_kernel.BK_TILES,
                                     mm_kernel.BN_TILES):
-        assert mm_kernel.STAGES * mm_kernel.smem_bytes(*blocks) <= \
+        assert mm_kernel.smem_bytes(*blocks) <= \
             min(SMEM_BYTES, mm_kernel.SMEM_LIMIT), blocks
         assert fit_blocks(*blocks, budget) == blocks
 
@@ -95,7 +95,7 @@ def test_chip_run_blocks_fit_unhalved(blocks):
     """The five block tuples the card's MIREDO plans of paths A and B ran
     pass eq. 9 as they are: at the default budget none is halved."""
     budget = min(mm_kernel.SMEM_LIMIT, device_smem_bytes())
-    assert mm_kernel.STAGES * mm_kernel.smem_bytes(*blocks) <= budget
+    assert mm_kernel.smem_bytes(*blocks) <= budget
     assert fit_blocks(*blocks, budget) == blocks
 
 
@@ -133,7 +133,7 @@ def test_path_blocks_unchanged(path, monkeypatch):
         assert blocks == select_blocks_from_mapping(
             mapping_from_json(lr.record["mapping"]), lr.layer, ARCH,
             cap=EXEC_BLOCK_CAP), op.name
-        assert mm_kernel.STAGES * mm_kernel.smem_bytes(*blocks) <= budget
+        assert mm_kernel.smem_bytes(*blocks) <= budget
         if path == "A":
             assert blocks == (128, 128, 128), op.name
 
@@ -155,10 +155,10 @@ def test_mapped_blocks_do_not_exceed_the_dims_needlessly():
     (1, 512, 128, 4), (1, 512, 128, 2), (1, 64, 64, 4), (512, 512, 64, 4),
     (264, 264, 16, 4), (4096, 4096, 128, 2), (1, 8, 128, 4)])
 def test_flash_blocks_fit(lq, lk, hd, bytes_el):
-    bq, bk = select_flash_blocks(lq, lk, hd, bytes_el=bytes_el)
+    bq, bk = select_flash_blocks(lq, lk, hd, bytes_el=bytes_el,
+                                 batch_heads=32, n_sms=SMS)
     assert bq in fa_kernel.BQ_TILES and bk in fa_kernel.BK_TILES
-    assert fa_kernel.STAGES * fa_kernel.smem_bytes(bq, bk, hd, bytes_el) \
-        <= SMEM_BYTES
+    assert fa_kernel.smem_bytes(bq, bk, hd, bytes_el) <= SMEM_BYTES
     if lq == 1:
         assert bq == 1                   # decode wastes no query rows
 
@@ -189,16 +189,19 @@ def test_flash_decode_pick_rejects_other_widths():
         select_flash_blocks(1, 512, 128, bytes_el=1)
 
 
-@pytest.mark.parametrize("lq,lk,hd,bytes_el,blocks", [
-    (512, 512, 64, 4, (64, 64)), (264, 264, 16, 4, (64, 64)),
-    (4096, 4096, 128, 2, (64, 64)), (17, 17, 64, 4, (32, 32)),
-    (64, 64, 128, 2, (64, 64))])
-def test_flash_prefill_picks_the_measured_tile(lq, lk, hd, bytes_el,
+@pytest.mark.parametrize("lq,lk,hd,bytes_el,bh,blocks", [
+    (512, 512, 64, 4, 36, (64, 64)), (264, 264, 16, 4, 16, (64, 64)),
+    (4096, 4096, 128, 2, 32, (64, 64)), (17, 17, 64, 4, 128, (32, 32)),
+    (64, 64, 128, 2, 128, (64, 64))])
+def test_flash_prefill_picks_the_measured_tile(lq, lk, hd, bytes_el, bh,
                                                blocks):
-    """Prefill takes the fewest steps among tiles of bk <= 64 that leave
-    two resident CTAs per SM: 64 x 64, the tile the chip's sweep measured
-    fastest, from 33 rows on; shorter prompts the least masked tile."""
-    assert select_flash_blocks(lq, lk, hd, bytes_el=bytes_el) == blocks
+    """Prefill, given B * H (``bh``) and the H100's SMs, takes the fewest
+    steps among tiles of bk <= 64: 64 x 64 from 33 rows on, the tile the
+    chip's sweep measured fastest at L 4096 and L 264 (PERF.md's sweep
+    table lists the cells where another tile beat it by 1-6 %); shorter
+    prompts the least masked tile. These grids fill half the SMs."""
+    assert select_flash_blocks(lq, lk, hd, bytes_el=bytes_el,
+                               batch_heads=bh, n_sms=SMS) == blocks
 
 
 def test_flash_blocks_reject_head_dim_past_kernel():
