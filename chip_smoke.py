@@ -16,8 +16,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      and resident CTAs per SM at every tile, the flash prefill kernel's
      registers, shared memory and resident CTAs per SM at every tile for
      hd 128 and 64 in both dtypes, the decode kernel's (the CUDA occupancy
-     API); HMMA (tensor-core) instructions in the SASS of every flash
-     prefill instance (``cuobjdump -sass``), or the run fails;
+     API); every ssd_scan instance's registers, resident CTAs per SM and
+     key groups, its shared memory against ``kernel.smem_bytes`` and no
+     local memory; HMMA (tensor-core) instructions in the SASS of every
+     flash prefill and every ssd_scan instance (``cuobjdump -sass``), or
+     the run fails;
   3. main paths, each with a cold solve cache and every launch counter
      zeroed just before it and read just after; every op must run on its
      kernel (``path == "cuda"``) and pass its oracle:
@@ -43,7 +46,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      tile, the bridge's prefill rule's evidence), in float32 and bfloat16;
      ssd_scan at every one-cell shape the
      plans run, at odd Q = 24 and at the full grid of one mamba2-1.3b
-     ``prefill_32k`` layer for one sequence, in float32 and bfloat16.
+     ``prefill_32k`` layer for one sequence at the bridge's query tile
+     (with its key groups, CTAs, GB/s and share of the bound), and the
+     ssd sweep (`SSD_SWEEP`, every bt, the bridge's ssd rule's evidence),
+     in float32 and bfloat16.
      Each is timed (CUDA events, L2 flushed before every launch, median)
      beside the plain version, one PyTorch library call computing the
      same function where there is one (timed here only, never used by
@@ -264,9 +270,38 @@ def phase_build(torch) -> None:
           f"instances ({min(hmma.values())}..{max(hmma.values())} each)",
           flush=True)
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
-    sizes = {f"{n}x{p}": ssd_kernel.smem_bytes(n, p)
-             for n, p in ((8, 8), (128, 64), (128, 128))}
-    print(f"[build] ssd_scan dynamic smem bytes, any dtype (N x P): {sizes}")
+    for dt, el in (("float32", 4), ("bfloat16", 2)):
+        occ = {}
+        for bt in ssd_kernel.BT_TILES:
+            for n in ssd_kernel.DIM_TILES:
+                for p in ssd_kernel.DIM_TILES:
+                    o = ssd_kernel.occupancy(bt, n, p, getattr(torch, dt))
+                    want = ssd_kernel.smem_bytes(n, p, el)
+                    require(o["smem_bytes"] == want and o["local_bytes"] == 0
+                            and o["ctas_per_sm"] >= 1,
+                            f"ssd_scan {(bt, n, p, dt)} launches with "
+                            f"{o['smem_bytes']} bytes of shared memory "
+                            f"(kernel.smem_bytes = {want}), "
+                            f"{o['local_bytes']} bytes of local memory, "
+                            f"{o['ctas_per_sm']} CTAs per SM")
+                    occ[f"{bt}x{n}x{p}"] = (o["regs"], o["smem_bytes"],
+                                            o["ctas_per_sm"],
+                                            ssd_kernel.key_groups(bt))
+        print(f"[build] ssd_scan kernel ({ssd_kernel.WARPS} warps), {dt} "
+              f"(bt x N' x P'): (registers, shared memory bytes, resident "
+              f"CTAs per SM, key groups), no local memory, shared memory = "
+              f"kernel.smem_bytes at every instance: {occ}")
+    # both products run on the tensor cores: every instance carries HMMA
+    hmma = {f: n for f, n in _tensor_core_counts(
+        _build.library_path("ssd_scan")).items()
+        if f.startswith("ssd_scan_kernel")}
+    want = 2 * len(ssd_kernel.BT_TILES) * len(ssd_kernel.DIM_TILES) ** 2
+    require(len(hmma) == want and all(hmma.values()),
+            f"ssd_scan tensor-core instructions: {len(hmma)} of {want} "
+            f"instances found, counts {hmma}")
+    print(f"[build] ssd_scan kernel: HMMA in the SASS of all {want} "
+          f"instances ({min(hmma.values())}..{max(hmma.values())} each)",
+          flush=True)
 
 
 def _counters() -> dict:
@@ -658,18 +693,30 @@ def flash_rows(torch, plan, out_c, timer) -> list[dict]:
     return rows
 
 
+#: (b, nc, q, h, n, p) of the ssd sweep (every bt, both dtypes): path B's
+#: one-cell op, path C's Q 64 cell, 12 cells, and one mamba2-1.3b
+#: prefill_32k layer of one sequence; `gpu_bridge.select_ssd_block` is
+#: read from it.
+SSD_SWEEP = ((1, 1, 256, 1, 128, 64), (1, 1, 64, 1, 128, 64),
+             (1, 4, 256, 3, 128, 64), (1, 128, 256, 64, 128, 64))
+
+
 def ssd_rows(torch, plans, timer) -> list[dict]:
     """ssd_scan against its plain version: every one-cell shape of the
-    plans' ``ssd_intra`` ops (as the executor runs them), odd Q = 24, and
-    the full grid of one mamba2-1.3b ``prefill_32k`` layer for one
-    sequence, each in float32 and bfloat16. Only path B's float32 op
-    counts toward the main-path total."""
+    plans' ``ssd_intra`` ops (as the executor runs them, at the bridge's
+    query tile), odd Q = 24, and the full grid of one mamba2-1.3b
+    ``prefill_32k`` layer for one sequence, each in float32 and bfloat16,
+    then the sweep (`SSD_SWEEP`, every bt). Only path B's float32 op counts
+    toward the main-path total."""
     from repro_torch.core.executor import NUMERICS_TOL
+    from repro_torch.core.gpu_bridge import select_ssd_block
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
     from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
     g = torch.Generator(device="cuda")
     g.manual_seed(2)
-    # (label, op or None, count, (b, nc, q, h, n, p))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # (label, op or None, count, (b, nc, q, h, n, p), bt or None: the pick)
     cases, seen = [], set()
     for label, plan in plans:
         for op, count in unique_ops(plan, "ssd_scan"):
@@ -677,16 +724,22 @@ def ssd_rows(torch, plans, timer) -> list[dict]:
             shape = (1, 1, s["q"], 1, s["n"], s["p"])
             if label == "B" or shape not in seen:
                 cases.append((label, op, count if label == "B" else 0,
-                              shape))
+                              shape, None))
                 seen.add(shape)
     # path C's exec_train cell (q 64; its exec_prefill cell is path B's),
     # odd Q, and one prefill_32k layer of one sequence: B=1, NC=128, Q=256,
     # H=64, N=128, P=64
     extra = [(1, 1, 64, 1, 128, 64), (1, 1, 24, 1, 8, 8),
              (2, 2, 24, 2, 16, 16), (1, 128, 256, 64, 128, 64)]
-    cases += [(None, None, 0, shape) for shape in extra if shape not in seen]
-    rows = []
-    for label, op, count, (b, nc, q, h, n, p) in cases:
+    cases += [(None, None, 0, shape, None) for shape in extra
+              if shape not in seen]
+    cases += [("sweep", None, 0, shape, bt) for shape in SSD_SWEEP
+              for bt in ssd_kernel.BT_TILES]
+    rows, plain_ms, occ = [], {}, {}
+    for label, op, count, (b, nc, q, h, n, p), bt in cases:
+        cells = b * nc * h
+        pick = select_ssd_block(cells, q, n_sms=sms)
+        bt = pick if bt is None else bt
         for dt in ("float32", "bfloat16"):
             dtype = getattr(torch, dt)
             c = torch.randn((b, nc, q, h, n), device="cuda", generator=g)
@@ -699,37 +752,66 @@ def ssd_rows(torch, plans, timer) -> list[dict]:
                      torch.randn((b, nc, q, h, p), device="cuda",
                                  generator=g))]
             del c, bb, dtv
-            kern = lambda: ssd_intra_chunk(*args)
+            kern = lambda: ssd_intra_chunk(*args, block_t=bt)
             plain = lambda: ssd_intra_chunk_ref(*args)
             out, ref = kern(), plain()
             torch.cuda.synchronize()
             rel = float((out.double() - ref.double()).norm() /
                         ref.double().norm())
-            name = op.name if op is not None else "shape"
+            name = op.name if op is not None else \
+                "ssd sweep" if label == "sweep" else "shape"
             require(bool(torch.isfinite(out).all()) and
                     out.shape == args[4].shape and out.dtype == dtype,
                     f"ssd_scan {name} finite, shaped, typed")
             require(rel <= NUMERICS_TOL["ssd_scan"],
-                    f"ssd_scan {(b, nc, q, h, n, p, dt)} rel err {rel}")
+                    f"ssd_scan {(b, nc, q, h, n, p, dt, bt)} rel err {rel}")
             el = 4 if dt == "float32" else 2
-            cells = b * nc * h
-            b_ms, b_by = bound_ms(
-                cells * (2 * q * n + 2 * q + 2 * q * p) * el,
-                cells * 2.0 * (n + p) * q * (q + 1) / 2, dt)
+            n_bytes = cells * (2 * q * n + 2 * q + 2 * q * p) * el
+            b_ms, b_by = bound_ms(n_bytes,
+                                  cells * 2.0 * (n + p) * q * (q + 1) / 2, dt)
             main = dt == "float32" and count > 0
-            row = {"path": label if dt == "float32" else None, "op": name,
-                   "shape": (b, nc, q, h, n, p), "dtype": dt,
+            ms = timer(kern)
+            # the plain version once per shape and dtype (not per bt)
+            key = (b, nc, q, h, n, p, dt)
+            if key not in plain_ms:
+                plain_ms[key] = timer(plain)
+            inst = (bt, ssd_kernel.padded_dim(n), ssd_kernel.padded_dim(p),
+                    dt)
+            if inst not in occ:
+                occ[inst] = ssd_kernel.occupancy(bt, n, p, dtype)
+            row = {"path": label if dt == "float32" and label != "sweep"
+                   else None, "op": name,
+                   "shape": (b, nc, q, h, n, p), "dtype": dt, "bt": bt,
+                   "pick": pick, "key_groups": ssd_kernel.key_groups(bt),
+                   "ctas": cells * math.ceil(q / bt),
                    "count": count if main else 0, "rel_err": rel,
                    "max_abs_err": float((out.float() - ref.float())
                                         .abs().max()),
-                   "ms": timer(kern), "plain_ms": timer(plain),
-                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                   "ms": ms, "plain_ms": plain_ms[key], "library_ms": None,
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "bound_share": b_ms / ms, "gb_s": n_bytes / ms / 1e6,
+                   "bound_gb_s": HBM_BYTES_S / 1e9,
+                   "regs": occ[inst]["regs"],
+                   "ctas_per_sm": occ[inst]["ctas_per_sm"],
                    "op_ms": op.measured_s * 1e3
                    if op is not None and dt == "float32" else None}
             rows.append(row)
             print(f"[ssd_scan] {json.dumps(row)}", flush=True)
             del args, out, ref
             torch.cuda.empty_cache()
+    for shape in SSD_SWEEP:
+        for dt in ("float32", "bfloat16"):
+            sweep = {r["bt"]: r["ms"] for r in rows
+                     if r["op"] == "ssd sweep" and r["dtype"] == dt and
+                     tuple(r["shape"]) == shape}
+            fastest = min(sweep, key=sweep.get)
+            pick = next(r["pick"] for r in rows if r["op"] == "ssd sweep"
+                        and tuple(r["shape"]) == shape)
+            print(f"[ssd sweep] {shape} {dt}: " + ", ".join(
+                f"bt {bt} {ms:.4f} ms" for bt, ms in sorted(sweep.items())) +
+                f"; fastest {fastest}; bridge pick {pick} "
+                f"(+{100 * (sweep[pick] / sweep[fastest] - 1):.1f} %)",
+                flush=True)
     return rows
 
 

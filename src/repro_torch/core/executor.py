@@ -66,7 +66,7 @@ from repro_torch.core import workload as wl
 from repro_torch.core.arch import CimArch
 from repro_torch.core.cache import mapping_from_json
 from repro_torch.core.gpu_bridge import device_sms, \
-    select_blocks_from_mapping, select_flash_blocks
+    select_blocks_from_mapping, select_flash_blocks, select_ssd_block
 
 #: Decode attention replays the step against a synthetic KV cache of the
 #: scenario's sequence length, capped as in the reference (a 32k-entry
@@ -397,11 +397,13 @@ def _run_ssd(op: ExecOp, gen, device, warmup: int,
     a = -uniform(0.5, 4.0, (1,))
     ss = torch.cumsum(dt * a, dim=2)
     x = torch.randn((1, 1, q, 1, p), generator=gen, device=device)
+    # one cell: the query tile that spreads it over the card's SMs
+    bt = select_ssd_block(1, q, n_sms=device_sms())
     before = kernel.launches
-    out, ref = ssd_intra_chunk_and_ref(c, b, ss, dt, x)
+    out, ref = ssd_intra_chunk_and_ref(c, b, ss, dt, x, block_t=bt)
     path = "cuda" if kernel.launches > before else "plain"
-    t = _time_call(lambda: ssd_intra_chunk(c, b, ss, dt, x), warmup - 1,
-                   repeats, device)
+    t = _time_call(lambda: ssd_intra_chunk(c, b, ss, dt, x, block_t=bt),
+                   warmup - 1, repeats, device)
     return t, _rel_err(out, ref), path
 
 

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.matmul_int8 import kernel as mm_kernel
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 
 #: Shared memory one CTA can use on an H100 (227 KB of the SM's 256 KB,
 #: as dynamic shared memory after opting in).
@@ -225,3 +226,38 @@ def select_flash_blocks(seq_q: int, seq_k: int, head_dim: int, *,
     if fills and grid(best) < n_sms / 2:
         best = min(fills, key=lambda t: (-t[0], steps(t)))
     return best
+
+
+def select_ssd_block(cells: int, seq_q: int, *, n_sms: int) -> int:
+    """Query-tile rows ``bt`` of the ssd_scan kernel for ``cells``
+    (batch * chunks * heads) cells of ``seq_q`` rows on a card of
+    ``n_sms`` SMs: the largest bt of ``BT_TILES`` whose grid,
+    ``cells * ceil(seq_q / bt)`` CTAs, fills half of ``n_sms``, else the
+    smallest. A smaller tile puts more CTAs on a cell and splits each
+    CTA's keys over more key groups, so a CTA's products shrink while the
+    keys it loads do not, and the cell's keys are read once per tile: it
+    pays only where the card would stand half idle.
+
+    Read off `chip_smoke.py`'s ssd sweep (`SSD_SWEEP`, every bt; ms of two
+    runs, run 1 / run 2, on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md,
+    Findings), as (b, nc, Q, h, N, P):
+      (1, 1, 256, 1, 128, 64), 4 CTAs at bt 64: bt 16 the fastest, float32
+        0.0145 / 0.0139 (bt 32 0.0156 / 0.0160, bt 64 0.0179 / 0.0183),
+        bfloat16 0.0128 / 0.0130 (0.0131 / 0.0131, 0.0160 / 0.0152);
+      (1, 1, 64, 1, 128, 64), one CTA at bt 64: bt 16 float32 0.0095 /
+        0.0095, +8 % on bt 32 (0.0088 / 0.0089), bt 64 0.0107 / 0.0109;
+        bfloat16 bt 16 the fastest, 0.0077 / 0.0078;
+      (1, 4, 256, 3, 128, 64), 96 CTAs at bt 32: float32 bt 32 the
+        fastest, 0.0160 / 0.0159; bfloat16 bt 16 0.0136 / 0.0138 against
+        bt 32's 0.0138 in run 2;
+      (1, 128, 256, 64, 128, 64), 32,768 CTAs at bt 64: bt 64 the
+        fastest, float32 1.7619 / 1.7636 (bt 16 3.662), bfloat16 0.9684 /
+        0.9690 (bt 16 1.739).
+    """
+    if cells < 1 or seq_q < 1 or n_sms < 1:
+        raise ValueError(f"cells {cells}, seq_q {seq_q}, n_sms {n_sms} "
+                         f"must be positive")
+    for bt in sorted(ssd_kernel.BT_TILES, reverse=True):
+        if cells * math.ceil(seq_q / bt) >= n_sms / 2:
+            return bt
+    return min(ssd_kernel.BT_TILES)

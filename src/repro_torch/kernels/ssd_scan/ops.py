@@ -15,11 +15,11 @@ from repro_torch.kernels.ssd_scan.kernel import \
 
 def ssd_intra_chunk_and_ref(c: torch.Tensor, b: torch.Tensor,
                             s: torch.Tensor, dt: torch.Tensor,
-                            x: torch.Tensor
+                            x: torch.Tensor, *, block_t: int | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Kernel and plain oracle on identical inputs — the executor's
-    per-invocation numerics check (`core/executor.py`). Returns
-    ``(kernel, ref)``."""
+    """Kernel (query tiles of ``block_t`` rows) and plain oracle on
+    identical inputs — the executor's per-invocation numerics check
+    (`core/executor.py`). Returns ``(kernel, ref)``."""
     from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
-    return (ssd_intra_chunk(c, b, s, dt, x),
+    return (ssd_intra_chunk(c, b, s, dt, x, block_t=block_t),
             ssd_intra_chunk_ref(c, b, s, dt, x))

@@ -309,6 +309,73 @@ def test_ssd_scan_flattened_and_strided_views(cuda):
     assert rel <= 2e-3
 
 
+def _ssd_rel(out, ref):
+    return float((out.double() - ref.double()).norm() / ref.double().norm())
+
+
+@pytest.mark.parametrize("n,p", [(8, 8), (64, 64), (128, 128), (128, 64),
+                                 (8, 128)], ids=str)
+@pytest.mark.parametrize("q", [24, 200])
+@pytest.mark.parametrize("bt", [16, 32, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_every_tile(cuda, dtype, bt, q, n, p):
+    """Every query tile (1, 2 or 4 key groups) at ragged Q, with N and P
+    at and under both padded instances, against the oracle at the
+    executor's 2e-3, and two launches bit-equal (the key groups' partial
+    sums meet in a fixed order)."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
+    from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
+    dt_ = getattr(torch, dtype)
+    args = _ssd_inputs((1, 2, q, 2, n, p), dt_, _gen(7))
+    out = ssd_intra_chunk(*args, block_t=bt)
+    again = ssd_intra_chunk(*args, block_t=bt)
+    torch.cuda.synchronize()
+    assert out.dtype == dt_ and out.shape == args[4].shape
+    assert torch.equal(out, again)
+    assert _ssd_rel(out, ssd_intra_chunk_ref(*args)) <= 2e-3
+
+
+@pytest.mark.parametrize("bt", [16, 32, 64])
+def test_ssd_scan_views_take_the_masked_loads(cuda, bt):
+    """Strided views along NC and H (16-byte aligned: cp.async) and views
+    one element off a 16-byte boundary, or with N * 4 not a multiple of
+    16 (the masked element loads), agree with the oracle at every tile;
+    masked entries stay exactly 0 (y[0] sees only tau = 0)."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
+    from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
+    c, bb, s, dt, x = _ssd_inputs((2, 4, 130, 4, 64, 64), torch.float32,
+                                  _gen(8))
+    for view in (lambda t: t[:, ::2], lambda t: t[:, :, :, 1::2],
+                 lambda t: t[..., 1:] if t.dim() == 5 else t,
+                 lambda t: t[..., :58] if t.dim() == 5 else t):
+        args = [view(t) for t in (c, bb, s, dt, x)]
+        out = ssd_intra_chunk(*args, block_t=bt)
+        assert _ssd_rel(out, ssd_intra_chunk_ref(*args)) <= 2e-3
+    # row 0 sees only key 0: s and x of every later key cannot reach it
+    args = [t[:1, :1] for t in (c, bb, s, dt, x)]
+    y0 = ssd_intra_chunk(*args, block_t=bt)[:, :, 0]
+    s2, x2 = args[2].clone(), args[4].clone()
+    s2[:, :, 1:] = 80.0
+    x2[:, :, 1:] *= 1e6
+    y2 = ssd_intra_chunk(args[0], args[1], s2, args[3], x2,
+                         block_t=bt)[:, :, 0]
+    assert torch.equal(y0, y2)
+
+
+def test_ssd_scan_instances_launch_as_stated(cuda):
+    """Every instance launches with `kernel.smem_bytes` of shared memory
+    (the opt-in set where it exceeds 48 KB, so at least one CTA fits an
+    SM) and no local memory."""
+    from repro_torch.kernels.ssd_scan import kernel
+    for bt in kernel.BT_TILES:
+        for n in kernel.DIM_TILES:
+            for p in kernel.DIM_TILES:
+                for dt_, el in ((torch.float32, 4), (torch.bfloat16, 2)):
+                    o = kernel.occupancy(bt, n, p, dt_)
+                    assert o["smem_bytes"] == kernel.smem_bytes(n, p, el)
+                    assert o["local_bytes"] == 0 and o["ctas_per_sm"] >= 1
+
+
 def test_executor_reduced_ssd_plan_runs_on_kernels(cuda, tmp_path,
                                                    monkeypatch):
     from repro_torch import serve_lm

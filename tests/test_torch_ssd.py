@@ -144,9 +144,11 @@ def _small():
 @pytest.mark.parametrize("case,exc", [
     ("b_shape", ValueError), ("s_shape", ValueError), ("x_rank", ValueError),
     ("float64", TypeError), ("mixed_dtype", TypeError),
-    ("mixed_device", ValueError), ("meta_device", ValueError)])
+    ("mixed_device", ValueError), ("meta_device", ValueError),
+    ("block_t", ValueError)])
 def test_wrapper_rejects(case, exc):
     c, b, s, dt, x = _small()
+    kw = {"block_t": 48} if case == "block_t" else {}
     if case == "b_shape":
         b = b[:, :, :-1]
     elif case == "s_shape":
@@ -159,10 +161,10 @@ def test_wrapper_rejects(case, exc):
         x = x.to(torch.bfloat16)
     elif case == "mixed_device":
         c = c.to("meta")
-    else:
+    elif case == "meta_device":
         c, b, s, dt, x = (t.to("meta") for t in (c, b, s, dt, x))
     with pytest.raises(exc):
-        ssd_intra_chunk(c, b, s, dt, x)
+        ssd_intra_chunk(c, b, s, dt, x, **kw)
 
 
 def test_flattened_wrapper_rejects_wrong_rank():
@@ -181,13 +183,17 @@ def test_cpu_call_takes_plain_version_without_launch():
 
 def test_build_lists_three_kernels_and_ssd_tiles_fit():
     """`_build` compiles one source per kernel, ssd_scan included; its
-    largest CTA (N = P = 128) fits the H100's 227 KB of shared memory
-    per block, and the executor's cell (N 128, P 64) needs the opt-in
-    above 48 KB that the launch sets."""
+    largest CTA (N = P = 128, float32: the ring of two 64-key slots) fits
+    the H100's 227 KB of shared memory per block, the executor's cell
+    (N 128, P 64, float32) needs the opt-in above 48 KB that the launch
+    sets wherever ``smem_bytes`` exceeds it, and a bfloat16 cell of
+    N, P <= 64 needs none."""
     from repro_torch.kernels import _build
     assert set(_build.SOURCES) == {"matmul_int8", "flash_attention",
                                    "ssd_scan"}
     assert all(_build.source_path(k).is_file() for k in _build.SOURCES)
-    assert ssd_kernel.smem_bytes(128, 128) <= 232448
-    assert ssd_kernel.smem_bytes(128, 64) > 48 * 1024
-    assert ssd_kernel.smem_bytes(8, 8) < 48 * 1024
+    assert ssd_kernel.smem_bytes(128, 128, 4) <= 232448
+    assert ssd_kernel.smem_bytes(128, 64, 4) > 48 * 1024
+    assert ssd_kernel.smem_bytes(8, 8, 2) <= 48 * 1024
+    src = _build.source_path("ssd_scan").read_text()
+    assert "if (p.bytes <= 48 * 1024) return cudaSuccess;" in src
