@@ -32,6 +32,27 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      C. ``repro_torch.exec_lm`` at published widths, quick solves, over
         minicpm-2b and mamba2-1.3b x the three execution scenarios: all
         three kernel families and both models' wGrad GEMMs;
+     D. ``repro_torch.serve_lm --live`` for glm4-9b at its published
+        widths (random float32 weights from the seed, 37.6 GB): 4 prompts
+        of 512 tokens prefilled, the attention of each of the 40 layers
+        on flash_attention (exactly 40 launches), then 16 greedy decode
+        steps on the plain product (no launch); then the same prefill
+        with ``use_flash=False``, all plain PyTorch: last-token logits,
+        and the logits of every decode step whose inputs still agree,
+        within flash_attention's tolerance, the first greedy token that
+        differs printed with its logit gap, and warm prefill times of
+        both in turns; a profile of decode steps (device busy against
+        wall time). The model is freed before E;
+     E. ``repro_torch.serve_lm --live`` for mamba2-1.3b at its published
+        widths, same traffic; its forward runs the plain SSD product, as
+        the reference's does, and beside it the path runs
+        ``models.ssm.ssd_chunked(use_kernel=True)`` on layer 0's SSD
+        operands of that prefill (one ssd_scan launch at b 4, nc 2, Q 256,
+        h 64, N 128, P 64) against ``use_kernel=False``; a profile of
+        decode steps as in D.
+     D and E pass the demo's checks: cache length exactly prompt +
+     generated and the last position written (D), the SSM state's shapes
+     (E); their lines print the card's name and power limit;
   4. kernels vs plain — each kernel against its plain PyTorch version on
      the same inputs on the card: matmul_int8 integer-exact with unit
      scales at K <= 1024 and at K = 1 and M = 1 for every tile, bit-equal
@@ -41,13 +62,15 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      flash_attention at path A's decode step and path C's minicpm-2b
      decode step (both at every block_k, with achieved GB/s beside the
      bound), path C's prefill attention ops at their plan shapes and
-     blocks, causal prefill (L = 1024, 4096), bidirectional and L = 264 at
+     blocks, path D's prefill attention (4 x 32 heads, L 512, hd 128),
+     causal prefill (L = 1024, 4096), bidirectional and L = 264 at
      the bridge's blocks, and the prefill sweep (`PREFILL_SWEEP`, every
      tile, the bridge's prefill rule's evidence), in float32 and bfloat16;
      ssd_scan at every one-cell shape the
      plans run, at odd Q = 24 and at the full grid of one mamba2-1.3b
      ``prefill_32k`` layer for one sequence at the bridge's query tile
-     (with its key groups, CTAs, GB/s and share of the bound), and the
+     (with its key groups, CTAs, GB/s and share of the bound), path E's
+     layer-0 grid (4, 2, 256, 64, 128, 64), and the
      ssd sweep (`SSD_SWEEP`, every bt, the bridge's ssd rule's evidence),
      in float32 and bfloat16.
      Each is timed (CUDA events, L2 flushed before every launch, median)
@@ -58,7 +81,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      C every op of its plans;
   5. the ``kernels`` line: matmul_int8 and flash_attention count-weighted
      over path A's plan (one decode step), ssd_scan over path B's (one
-     prompt pass); launches are summed over the three paths;
+     prompt pass); launches are summed over the five paths;
   6. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the repository beside it, it exits
@@ -399,6 +422,225 @@ def phase_path_c(torch) -> tuple:
     return out, launches
 
 
+#: Paths D and E serve the live model through ``serve_lm --live``: 4
+#: prompts of 512 tokens (the shortest causal prefill that runs on
+#: flash_attention) and 16 greedy tokens each.
+LIVE_BATCH, LIVE_PROMPT, LIVE_GEN = 4, 512, 16
+
+
+def _live_args(arch: str) -> list[str]:
+    return ["--live", "--arch", arch, "--batch", str(LIVE_BATCH),
+            "--prompt-len", str(LIVE_PROMPT), "--gen-len", str(LIVE_GEN),
+            "--device", "cuda"]
+
+
+def _rel(out, ref) -> float:
+    return float((out.double() - ref.double()).norm() / ref.double().norm())
+
+
+def _sync_ms(torch, fn) -> float:
+    """Wall ms of ``fn()`` between two synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    fn()
+    torch.cuda.synchronize()
+    return (time.monotonic() - t0) * 1e3
+
+
+def _live_summary(label: str, rep, info: dict) -> dict:
+    """Prefill ms, decode ms per step (median), tokens/s and peak memory
+    of one live run, printed beside the card's name and power limit."""
+    out = {"prefill_ms": rep.prefill_ms, "decode_ms": rep.decode_ms,
+           "decode_ms_median": statistics.median(rep.decode_ms),
+           "tokens_per_s": rep.tokens_per_s, "peak_bytes": rep.peak_bytes,
+           "init_s": rep.init_s}
+    print(f"[main {label}] {rep.arch} live, {rep.batch} x {rep.prompt_len} "
+          f"prompt + {rep.gen_len} greedy tokens: prefill "
+          f"{rep.prefill_ms:.4f} ms (first call), decode "
+          f"{sum(rep.decode_ms):.4f} ms (median {out['decode_ms_median']:.4f}"
+          f" ms a step), {rep.tokens_per_s:.4f} tokens/s, peak "
+          f"{rep.peak_bytes:,} bytes allocated; card {info['nvidia_smi']}",
+          flush=True)
+    return out
+
+
+def _profile_decode(torch, label: str, info: dict, decode, model, tok,
+                    caches, steps: int = 4) -> dict:
+    """Where a decode step's time goes: ``steps`` greedy steps under
+    ``torch.profiler``, the CUDA kernels' summed device time per step
+    against the step's wall time (profiled, so both include the
+    profiler's own cost), the device's idle share, the kernels launched a
+    step and the four costliest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    decode(model, {"tokens": tok}, caches)          # warm, same shapes
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(steps):
+            logits, caches = decode(model, {"tokens": tok}, caches)
+            tok = logits.argmax(dim=-1)[:, None]
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) * 1e3 / steps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    dev = lambda e: e.self_device_time_total / 1e3 / steps     # ms a step
+    busy = sum(dev(e) for e in kernels)
+    top = sorted(kernels, key=dev, reverse=True)[:4]
+    out = {"wall_ms": wall, "device_ms": busy,
+           "idle_share": 1 - busy / wall,
+           "kernels_per_step": sum(e.count for e in kernels) / steps,
+           "top": [(e.key[:60], dev(e)) for e in top]}
+    print(f"[main {label}] decode step profiled ({steps} steps): wall "
+          f"{wall:.4f} ms, device busy {busy:.4f} ms, idle share "
+          f"{out['idle_share']:.4f}, {out['kernels_per_step']:.0f} kernels "
+          f"a step; costliest {out['top']}; card {info['nvidia_smi']}",
+          flush=True)
+    return out
+
+
+def _free(torch) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_path_d(torch, info: dict) -> tuple:
+    """glm4-9b served at its published widths: the prefill's attention on
+    flash_attention (one launch a layer), decode steps on the plain
+    product. Then the same prefill with ``use_flash=False``, all plain
+    PyTorch, on the same weights and prompts: last-token logits within
+    the kernel's tolerance, and the greedy decode from it."""
+    from repro_torch import serve_lm
+    from repro_torch.core.executor import NUMERICS_TOL
+    from repro_torch.train.steps import StepConfig, make_decode_step, \
+        make_prefill_step
+    rep, launches = drive(torch, "D", lambda: serve_lm.main(
+        _live_args("glm4-9b")))
+    cfg = rep.model.cfg
+    none = {"flash_attention": 0, "ssd_scan": 0}
+    require(rep.launches["prefill"] == dict(none, flash_attention=
+                                            cfg.n_layers),
+            f"D: prefill launches {rep.launches['prefill']}, want "
+            f"{cfg.n_layers} flash_attention")
+    require(all(d == none for d in rep.launches["decode"]),
+            f"D: decode launches {rep.launches['decode']}")
+    require(launches == {"matmul_int8": 0, "flash_attention": cfg.n_layers,
+                         "ssd_scan": 0}, f"D: launches {launches}")
+    summary = _live_summary("D", rep, info)
+    tol = NUMERICS_TOL["flash_attention"]
+    plain_cfg = StepConfig(use_flash=False, compute_dtype=torch.float32)
+    prefill = {"flash": make_prefill_step(cfg, StepConfig(
+        use_flash=True, compute_dtype=torch.float32)),
+        "plain": make_prefill_step(cfg, plain_cfg)}
+    batch = {"tokens": rep.prompt}
+    logits, caches = prefill["plain"](rep.model, batch)
+    rel = _rel(rep.step_logits[0], logits)
+    print(f"[main D] last-token logits, flash_attention prefill vs plain: "
+          f"rel err {rel:.3e} (tolerance {tol}), max abs err "
+          f"{float((rep.step_logits[0] - logits).abs().max()):.3e}",
+          flush=True)
+    require(rel <= tol, f"D: prefill logits rel err {rel} > {tol}")
+    # the greedy decode from the plain prefill: the steps whose inputs
+    # agree (every token before them equal) must agree within tol
+    decode = make_decode_step(cfg, plain_cfg)
+    caches = serve_lm.pad_caches(caches, rep.max_seq)
+    toks, step_logits = [logits.argmax(dim=-1)[:, None]], [logits]
+    for _ in range(rep.gen_len):
+        logits, caches = decode(rep.model, {"tokens": toks[-1]}, caches)
+        toks.append(logits.argmax(dim=-1)[:, None])
+        step_logits.append(logits)
+    plain_tokens = torch.cat(toks, dim=1)
+    differ = (plain_tokens != rep.tokens).any(dim=0).nonzero()
+    first = int(differ[0]) if len(differ) else rep.gen_len + 1
+    rels = [_rel(rep.step_logits[s], step_logits[s])
+            for s in range(min(first + 1, rep.gen_len + 1))]
+    require(max(rels) <= tol, f"D: step logits rel err {rels} > {tol}")
+    if first <= rep.gen_len:
+        row = int((plain_tokens[:, first] != rep.tokens[:, first])
+                  .nonzero()[0])
+        tp, tf = int(plain_tokens[row, first]), int(rep.tokens[row, first])
+        lp, lf = step_logits[first][row], rep.step_logits[first][row]
+        print(f"[main D] greedy tokens agree for {first} of "
+              f"{rep.gen_len + 1} steps; step {first} row {row}: plain "
+              f"{tp}, flash {tf}; gap plain {float(lp[tp] - lp[tf]):.3e}, "
+              f"flash {float(lf[tf] - lf[tp]):.3e}", flush=True)
+    else:
+        print(f"[main D] greedy tokens equal at all {rep.gen_len + 1} steps "
+              f"(prefill + {rep.gen_len} decode)", flush=True)
+    print(f"[main D] step logits rel err, flash vs plain prefill, steps "
+          f"0..{len(rels) - 1}: max {max(rels):.3e}", flush=True)
+    # warm prefills in turns, plain, flash, flash, plain
+    warm = {"flash": [], "plain": []}
+    for kind in ("plain", "flash", "flash", "plain"):
+        warm[kind].append(_sync_ms(torch, lambda: prefill[kind](
+            rep.model, batch)))
+    print(f"[main D] warm prefill ms, flash {warm['flash']}, plain "
+          f"{warm['plain']}; card {info['nvidia_smi']}", flush=True)
+    profiled = _profile_decode(torch, "D", info, decode, rep.model, toks[-1],
+                               serve_lm.pad_caches(caches, rep.max_seq + 8))
+    summary.update(prefill_rel_err=rel, step_rel_err_max=max(rels),
+                   tokens_agree_steps=first, warm_prefill_ms=warm,
+                   decode_profile=profiled)
+    del rep, logits, caches, step_logits, toks, prefill, decode, batch
+    _free(torch)
+    return summary, launches
+
+
+def phase_path_e(torch, info: dict) -> tuple:
+    """mamba2-1.3b served at its published widths. Its forward runs the
+    plain SSD product, as the reference's does; beside it the path runs
+    ``ssd_chunked(use_kernel=True)`` on layer 0's SSD operands of this
+    prefill, (b 4, nc 2, Q 256, h 64, N 128, P 64), and holds it against
+    ``use_kernel=False``."""
+    from repro_torch import serve_lm
+    from repro_torch.core.executor import NUMERICS_TOL
+    from repro_torch.models.layers import embed, rms_norm
+    from repro_torch.models.ssm import ssd_chunked, ssd_inputs
+    from repro_torch.train.steps import StepConfig, make_decode_step
+
+    def run():
+        rep = serve_lm.main(_live_args("mamba2-1.3b"))
+        cfg, blk = rep.model.cfg, rep.model.blocks[0]
+        with torch.no_grad():
+            x = rms_norm(blk.ln, embed(rep.model.embed, rep.prompt,
+                                       torch.float32), cfg.norm_eps)
+            _, xs, dt, a, bm, cm, _ = ssd_inputs(blk.mamba, x, cfg)
+            args = (xs, dt, a, bm, cm, blk.mamba.d_skip)
+            return rep, args, ssd_chunked(*args, use_kernel=True)
+    (rep, args, (y, h)), launches = drive(torch, "E", run)
+    none = {"flash_attention": 0, "ssd_scan": 0}
+    require(rep.launches["prefill"] == none and
+            all(d == none for d in rep.launches["decode"]),
+            f"E: the forward launched {rep.launches}")
+    require(launches == {"matmul_int8": 0, "flash_attention": 0,
+                         "ssd_scan": 1}, f"E: launches {launches}")
+    summary = _live_summary("E", rep, info)
+    with torch.no_grad():
+        y_ref, h_ref = ssd_chunked(*args, use_kernel=False)
+    tol = NUMERICS_TOL["ssd_scan"]
+    rel_y, rel_h = _rel(y, y_ref), _rel(h, h_ref)
+    xs, bm = args[0], args[3]
+    shape = (xs.shape[0], xs.shape[1] // 256, 256, xs.shape[2], bm.shape[3],
+             xs.shape[3])
+    print(f"[main E] ssd_chunked(use_kernel=True) on layer 0's operands "
+          f"{shape} (b, nc, Q, h, N, P) vs use_kernel=False: y rel err "
+          f"{rel_y:.3e}, max abs err {float((y - y_ref).abs().max()):.3e}, "
+          f"final state rel err {rel_h:.3e} (tolerance {tol})", flush=True)
+    require(rel_y <= tol and rel_h <= tol,
+            f"E: ssd_chunked kernel vs plain rel err {rel_y}, {rel_h}")
+    decode = make_decode_step(rep.model.cfg, StepConfig(
+        compute_dtype=torch.float32))
+    profiled = _profile_decode(torch, "E", info, decode, rep.model,
+                               rep.tokens[:, -1:], rep.caches)
+    summary.update(ssd_shape=shape, ssd_rel_err=rel_y,
+                   decode_profile=profiled)
+    del rep, args, y, h, y_ref, h_ref, decode
+    _free(torch)
+    return summary, launches
+
+
 def unique_ops(plan, kernel: str) -> list[tuple]:
     """(first op, instances in the plan) per structurally unique op."""
     first: dict = {}
@@ -571,6 +813,7 @@ def flash_rows(torch, plan, out_c, timer) -> list[dict]:
     attention ops (``flash_ops``) are held and timed at their plan shapes
     and blocks."""
     import torch.nn.functional as F
+    from repro_torch.configs import get_config
     from repro_torch.core.executor import NUMERICS_TOL
     from repro_torch.core.gpu_bridge import select_flash_blocks
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -579,6 +822,7 @@ def flash_rows(torch, plan, out_c, timer) -> list[dict]:
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    glm = get_config("glm4-9b")
     # (path, count in that path's plan, op ms there, name, (b, lq, lk, h,
     # hd, causal, dtype, block_q, block_k)); the executor runs float32 at
     # the bridge's blocks, so only that row of a plan op counts for its
@@ -612,6 +856,17 @@ def flash_rows(torch, plan, out_c, timer) -> list[dict]:
                               shape))
     for dt in ("float32", "bfloat16"):
         el = 4 if dt == "float32" else 2
+        # path D's prefill attention (glm4-9b: 4 prompts of 512, 32 heads
+        # of 128, causal, one launch a layer) at the bridge's blocks, as
+        # the model runs it; float32 is the dtype the path serves in
+        h, hd = glm.n_heads, glm.resolved_head_dim
+        main = dt == "float32"
+        cases.append(("D" if main else None, glm.n_layers if main else 0,
+                      None, "glm4-9b live prefill attention",
+                      (LIVE_BATCH, LIVE_PROMPT, LIVE_PROMPT, h, hd, True,
+                       dt) + select_flash_blocks(
+                          LIVE_PROMPT, LIVE_PROMPT, hd, bytes_el=el,
+                          batch_heads=LIVE_BATCH * h, n_sms=sms)))
         # path C's minicpm-2b exec_decode step (16 sequences against a
         # 256-entry cache, 36 heads of 64), at every block_k
         cases += [(None, 0, None, "minicpm-2b exec_decode",
@@ -708,6 +963,7 @@ def ssd_rows(torch, plans, timer) -> list[dict]:
     ``prefill_32k`` layer for one sequence, each in float32 and bfloat16,
     then the sweep (`SSD_SWEEP`, every bt). Only path B's float32 op counts
     toward the main-path total."""
+    from repro_torch.configs import get_config
     from repro_torch.core.executor import NUMERICS_TOL
     from repro_torch.core.gpu_bridge import select_ssd_block
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
@@ -733,6 +989,13 @@ def ssd_rows(torch, plans, timer) -> list[dict]:
              (2, 2, 24, 2, 16, 16), (1, 128, 256, 64, 128, 64)]
     cases += [(None, None, 0, shape, None) for shape in extra
               if shape not in seen]
+    # path E's ssd_chunked(use_kernel=True) on layer 0 of the live
+    # prefill: chunks of 256, d_inner / head_dim heads
+    mamba = get_config("mamba2-1.3b")
+    cases.append(("E", None, 0, (
+        LIVE_BATCH, LIVE_PROMPT // 256, 256,
+        mamba.ssm_expand * mamba.d_model // mamba.ssm_head_dim,
+        mamba.ssm_state, mamba.ssm_head_dim), None))
     cases += [("sweep", None, 0, shape, bt) for shape in SSD_SWEEP
               for bt in ssd_kernel.BT_TILES]
     rows, plain_ms, occ = [], {}, {}
@@ -759,7 +1022,8 @@ def ssd_rows(torch, plans, timer) -> list[dict]:
             rel = float((out.double() - ref.double()).norm() /
                         ref.double().norm())
             name = op.name if op is not None else \
-                "ssd sweep" if label == "sweep" else "shape"
+                "ssd sweep" if label == "sweep" else \
+                "mamba2-1.3b live layer 0" if label == "E" else "shape"
             require(bool(torch.isfinite(out).all()) and
                     out.shape == args[4].shape and out.dtype == dtype,
                     f"ssd_scan {name} finite, shaped, typed")
@@ -863,7 +1127,10 @@ def main() -> int:
     rep_a, launch_a = phase_path_a(torch)
     rep_b, launch_b = phase_path_b(torch)
     out_c, launch_c = phase_path_c(torch)
-    launches = {"A": launch_a, "B": launch_b, "C": launch_c}
+    live_d, launch_d = phase_path_d(torch, info)
+    live_e, launch_e = phase_path_e(torch, info)
+    launches = {"A": launch_a, "B": launch_b, "C": launch_c, "D": launch_d,
+                "E": launch_e}
     plans = [("A", rep_a.plan), ("B", rep_b.plan)]
     timer = Timer(torch)
     mm = matmul_rows(torch, plans, timer)
@@ -881,6 +1148,9 @@ def main() -> int:
               f"err {rep.max_rel_err:.3e}; card {info['nvidia_smi']}")
     print(f"[main C] report: pooled spearman {out_c['pooled_rank_corr']} "
           f"over {out_c['n_rank_points']} points; card {info['nvidia_smi']}")
+    for label, live in (("D", live_d), ("E", live_e)):
+        print(f"[main {label}] report: {json.dumps(live)}; card "
+              f"{info['nvidia_smi']}")
     print(f"[smoke] all phases passed in {time.monotonic() - t0:.1f} s",
           flush=True)
     print(info["nvidia_smi"])

@@ -1,0 +1,80 @@
+"""Weights carried across: the reference's parameter tree, as numpy
+arrays, into the port's model.
+
+The reference keeps each per-layer parameter stacked along a leading
+layer axis (``blocks.attn.wq.w`` of shape (n_layers, d, h*hd)); here each
+layer is its own module (``blocks.<i>.attn.wq.w``). Values are copied
+exactly, in the tree's dtype (bfloat16 included), and a name or shape the
+model does not have, or a parameter the tree does not fill, raises.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import LM, init_model
+
+
+def flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    """A nested mapping's leaves under dotted names."""
+    out: dict[str, np.ndarray] = {}
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            out.update(flatten(val, name + "."))
+        else:
+            out[name] = np.asarray(val)
+    return out
+
+
+def _to_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A copy of ``arr`` in its own dtype; numpy's bfloat16 (ml_dtypes)
+    goes across bit for bit."""
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def load_numpy(module: nn.Module, flat: Mapping[str, np.ndarray],
+               device=None) -> nn.Module:
+    """Replace every parameter of ``module`` by the array of its dotted
+    name in ``flat``, on ``device`` in the array's dtype. Raises unless
+    the names are exactly the module's and every shape matches."""
+    want = dict(module.named_parameters())
+    unused = sorted(set(flat) - set(want))
+    missing = sorted(set(want) - set(flat))
+    if unused or missing:
+        raise ValueError(f"parameter names differ: not in the model "
+                         f"{unused}, not in the tree {missing}")
+    for name, param in want.items():
+        if tuple(flat[name].shape) != tuple(param.shape):
+            raise ValueError(f"{name}: shape {flat[name].shape} where the "
+                             f"model has {tuple(param.shape)}")
+        owner, _, leaf = name.rpartition(".")
+        setattr(module.get_submodule(owner), leaf, nn.Parameter(
+            _to_tensor(np.asarray(flat[name])).to(device),
+            requires_grad=False))
+    return module
+
+
+def params_from_numpy(cfg: ModelConfig, tree: Mapping, device=None) -> LM:
+    """``tree``: the reference's ``init_model(key, cfg)`` mapped to numpy
+    (``jax.tree.map(np.asarray, params)``). Returns the port's model on
+    ``device`` holding those values."""
+    flat = flatten(tree)
+    stacked = [name for name in flat if name.startswith("blocks.")]
+    for name in stacked:
+        arr = flat.pop(name)
+        if arr.ndim == 0 or arr.shape[0] != cfg.n_layers:
+            raise ValueError(f"{name}: leading axis {arr.shape[:1]} is not "
+                             f"the {cfg.n_layers} layers")
+        rest = name[len("blocks."):]
+        for i in range(cfg.n_layers):
+            flat[f"blocks.{i}.{rest}"] = arr[i]
+    return load_numpy(init_model(cfg, None, device="meta"), flat, device)

@@ -585,3 +585,94 @@ def test_flash_prefill_kernel_path_c_shape(cuda, dtype):
     causal) at every tile."""
     q, k, v = _prefill_case(1, 512, 512, 36, 64, getattr(torch, dtype), 25)
     _prefill_check(q, k, v, causal=True)
+
+
+# ---------------------------------------------------------------------------
+# The live model (`repro_torch.models`) driving the kernels on the card
+# ---------------------------------------------------------------------------
+
+def _reduced_model(cuda, arch, seed=0):
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+    cfg = get_config(arch).reduced()
+    return cfg, init_model(cfg, _gen(seed), torch.float32, cuda)
+
+
+def _prefill(cfg, model, tokens, use_flash):
+    from repro_torch.train.steps import StepConfig, make_prefill_step
+    return make_prefill_step(cfg, StepConfig(
+        use_flash=use_flash, compute_dtype=torch.float32))(
+            model, {"tokens": tokens})
+
+
+def test_model_prefill_flash_vs_plain(cuda):
+    """Reduced-width glm4-9b, 2 prompts of 512 tokens (the shortest
+    causal prefill on the flash branch): the prefill with use_flash=True
+    (each layer's attention on the kernel) against use_flash=False (all
+    plain PyTorch) on the same weights. Last-token logits within
+    flash_attention's NUMERICS_TOL (2e-3 relative); the first layer's K
+    and V are made before any attention, so they are equal."""
+    from repro_torch.core.executor import NUMERICS_TOL
+    cfg, model = _reduced_model(cuda, "glm4-9b")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 512), device=cuda,
+                           generator=_gen(1))
+    lf, cf = _prefill(cfg, model, tokens, True)
+    lp, cp = _prefill(cfg, model, tokens, False)
+    assert torch.isfinite(lf).all() and lf.shape == lp.shape
+    rel = float((lf.double() - lp.double()).norm() / lp.double().norm())
+    assert rel <= NUMERICS_TOL["flash_attention"], rel
+    assert torch.equal(cf.k[0], cp.k[0]) and torch.equal(cf.v[0], cp.v[0])
+    assert torch.equal(cf.length, cp.length)
+
+
+def test_forward_launches_flash_once_per_layer(cuda):
+    """On CUDA tensors a causal prefill of L >= 512 launches
+    flash_attention once per layer; L 511 and a decode step launch it
+    never."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models import transformer
+    cfg, model = _reduced_model(cuda, "glm4-9b", seed=2)
+    launches = []
+    for l in (512, 511):
+        tokens = torch.randint(0, cfg.vocab_size, (1, l), device=cuda,
+                               generator=_gen(3))
+        before = fa_kernel.launches
+        out = transformer.forward(model, cfg, tokens, mode="prefill",
+                                  use_flash=True,
+                                  compute_dtype=torch.float32)
+        launches.append(fa_kernel.launches - before)
+    before = fa_kernel.launches
+    transformer.forward(model, cfg, tokens[:, :1], mode="decode",
+                        caches=out.caches, use_flash=True,
+                        compute_dtype=torch.float32)
+    launches.append(fa_kernel.launches - before)
+    assert launches == [cfg.n_layers, 0, 0]
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("chunk", [32, 256])
+def test_ssd_chunked_kernel_vs_plain(cuda, groups, chunk):
+    """``models.ssm.ssd_chunked(use_kernel=True)`` (the intra-chunk product
+    on ssd_scan, one launch) against ``use_kernel=False`` on the card,
+    within NUMERICS_TOL["ssd_scan"] (2e-3 relative); with 2 groups the
+    B and C operands are repeated over the heads of each group before the
+    kernel reads them. The final state does not pass through the kernel."""
+    from repro_torch.core.executor import NUMERICS_TOL
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.models.ssm import ssd_chunked
+    b, l, h, p, n = 2, 512, 4, 32, 64
+    g = _gen(4 + groups)
+    x = torch.randn((b, l, h, p), device=cuda, generator=g)
+    dt = 0.001 + 0.199 * torch.rand((b, l, h), device=cuda, generator=g)
+    a = -(0.5 + 3.5 * torch.rand((h,), device=cuda, generator=g))
+    bm = torch.randn((b, l, groups, n), device=cuda, generator=g)
+    cm = torch.randn((b, l, groups, n), device=cuda, generator=g)
+    d = torch.randn((h,), device=cuda, generator=g)
+    before = ssd_kernel.launches
+    y1, h1 = ssd_chunked(x, dt, a, bm, cm, d, chunk=chunk, use_kernel=True)
+    assert ssd_kernel.launches - before == 1
+    y0, h0 = ssd_chunked(x, dt, a, bm, cm, d, chunk=chunk, use_kernel=False)
+    rel = float((y1.double() - y0.double()).norm() / y0.double().norm())
+    assert torch.isfinite(y1).all()
+    assert rel <= NUMERICS_TOL["ssd_scan"], rel
+    assert torch.equal(h1, h0)

@@ -1,7 +1,8 @@
 """The port stands alone: nothing under `src/repro_torch/`, nor
 `chip_smoke.py`, imports JAX, the JAX package or its benchmarks, and the
-reduced slices (`serve_lm`, and `exec_lm` over mamba2-1.3b) run in a
-process where none of them can be imported."""
+reduced slices (`serve_lm`, `exec_lm` over mamba2-1.3b, and
+``python -m repro_torch.serve_lm --live`` for glm4-9b and mamba2-1.3b)
+run in a process where none of them can be imported."""
 
 import ast
 import os
@@ -65,6 +66,14 @@ def test_slice_runs_with_jax_and_reference_blocked(tmp_path):
         "                  archs=('mamba2-1.3b',), repeats=1)\n"
         "assert all(r['numerics_ok'] for r in out['rows'])\n"
         "assert 'ssd_scan' in out['kernels']\n"
+        "import runpy\n"
+        "for arch in ('glm4-9b', 'mamba2-1.3b'):\n"
+        "    sys.argv = ['serve_lm', '--live', '--reduced', '--device',\n"
+        "                'cpu', '--arch', arch]\n"
+        "    try:\n"
+        "        runpy.run_module('repro_torch.serve_lm', run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, e.code\n"
         "assert not any(m.split('.')[0] in ('jax', 'repro', 'benchmarks')\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ISOLATED-OK')\n")
