@@ -50,9 +50,29 @@ Phases, each of which stops the run with a non-zero exit when it fails:
         operands of that prefill (one ssd_scan launch at b 4, nc 2, Q 256,
         h 64, N 128, P 64) against ``use_kernel=False``; a profile of
         decode steps as in D.
-     D and E pass the demo's checks: cache length exactly prompt +
-     generated and the last position written (D), the SSM state's shapes
-     (E); their lines print the card's name and power limit;
+     F-I. ``repro_torch.serve_lm --live`` for the other families at
+        their published widths, float32, the traffic of D, one path at a
+        time, each model freed before the next: F qwen2-moe-a2.7b (moe,
+        57.3 GB), G zamba2-1.2b (hybrid), H pixtral-12b (vlm, 1024 stub
+        patch embeddings in front of each prompt: prefills of 1536
+        positions), I seamless-m4t-large-v2 (encdec, an encoder over 1024
+        stub frames). Exactly 24 / 6 / 40 / 24 flash_attention launches a
+        prefill (the hybrid's one a group; the encoder and the
+        cross-attention run the plain product, as the reference's) and
+        none a decode step; the all-plain prefill and its greedy decode
+        on the same weights and inputs as in D, one warm prefill of each.
+        F's router is discontinuous (top-k with a capacity): its plain
+        prefill runs free first (logits and the routing decisions that
+        differ from the flash run's printed, held to the tolerance when
+        none differ), then along the flash run's recorded routing for the
+        held comparison and the greedy decode; a profile of decode steps
+        as in D;
+     D-I pass the demo's checks: cache length exactly the prefilled +
+     generated positions and the last position written (D, F-I), the SSM
+     states' shapes (E, G), the cross K/V and memory (I); their lines
+     print the card's name and power limit. Then ``[traffic]``:
+     ``serve_lm --traffic``, the request-level simulator (host only),
+     continuous batching no slower than serial;
   4. kernels vs plain — each kernel against its plain PyTorch version on
      the same inputs on the card: matmul_int8 integer-exact with unit
      scales at K <= 1024 and at K = 1 and M = 1 for every tile, bit-equal
@@ -62,7 +82,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      flash_attention at path A's decode step and path C's minicpm-2b
      decode step (both at every block_k, with achieved GB/s beside the
      bound), path C's prefill attention ops at their plan shapes and
-     blocks, path D's prefill attention (4 x 32 heads, L 512, hd 128),
+     blocks, path D's prefill attention (4 x 32 heads, L 512, hd 128)
+     and paths F-I's (float32),
      causal prefill (L = 1024, 4096), bidirectional and L = 264 at
      the bridge's blocks, and the prefill sweep (`PREFILL_SWEEP`, every
      tile, the bridge's prefill rule's evidence), in float32 and bfloat16;
@@ -81,7 +102,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      C every op of its plans;
   5. the ``kernels`` line: matmul_int8 and flash_attention count-weighted
      over path A's plan (one decode step), ssd_scan over path B's (one
-     prompt pass); launches are summed over the five paths;
+     prompt pass); launches are summed over the main paths A-I;
   6. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the repository beside it, it exits
@@ -90,6 +111,7 @@ non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -506,16 +528,160 @@ def _free(torch) -> None:
     torch.cuda.empty_cache()
 
 
+class RouteLog:
+    """The experts every MoE layer's router picks, in call order
+    (``models.moe.top_k_experts`` wrapped while a mode is on):
+    ``record`` keeps them; ``compare`` counts the routing slots, and the
+    tokens, whose experts differ from the record's call by call;
+    ``replay`` counts them too and hands the recorded experts back (their
+    gates are this run's probabilities, renormalised as usual). A top-k
+    router is discontinuous: a near-tie that the flash and the plain
+    attention resolve apart moves a token by a whole expert, so the plain
+    prefill is held to the kernel's tolerance along the flash run's
+    routing, and the free-running one beside it."""
+
+    def __init__(self):
+        from repro_torch.models import moe as moe_mod
+        self.moe, self.orig = moe_mod, moe_mod.top_k_experts
+        self.calls, self.kind, self.i = [], None, 0
+        self.slots = self.tokens = self.decisions = 0
+
+    @contextlib.contextmanager
+    def mode(self, kind: str):
+        self.kind, self.i = kind, 0
+        self.slots = self.tokens = self.decisions = 0
+        self.moe.top_k_experts = self
+        try:
+            yield self
+        finally:
+            self.moe.top_k_experts, self.kind = self.orig, None
+
+    def __call__(self, probs, k):
+        values, idx = self.orig(probs, k)
+        if self.kind == "record":
+            self.calls.append(idx)
+            return values, idx
+        want = self.calls[self.i]
+        self.i += 1
+        self.slots += int((idx != want).sum())
+        self.tokens += int((idx.sort(dim=-1).values !=
+                            want.sort(dim=-1).values).any(dim=-1).sum())
+        self.decisions += idx.shape[0]
+        if self.kind == "replay":
+            return probs.gather(-1, want), want
+        return values, idx
+
+
+def _flash_vs_plain(torch, label: str, rep, info: dict,
+                    turns: tuple[str, ...],
+                    routes: RouteLog | None = None) -> tuple:
+    """The live run's prefill again with ``use_flash=False``, all plain
+    PyTorch, on the same weights, prompts and frontend embeddings:
+    last-token logits within flash_attention's tolerance; the greedy
+    decode from it, the logits of every step whose inputs still agree
+    within the tolerance and the first greedy token that differs printed
+    with its logit gap; then warm prefills of both kinds in ``turns``.
+    With ``routes`` (a MoE model, its live run recorded), the plain
+    prefill runs free first: its logits and the routing decisions that
+    differ from the flash run's are printed, and held to the tolerance
+    when none differ; the held prefill and decode then replay the flash
+    run's routing. Returns (summary fields, the plain decode step, its
+    last token, its caches)."""
+    from repro_torch import serve_lm
+    from repro_torch.core.executor import NUMERICS_TOL
+    from repro_torch.train.steps import StepConfig, make_decode_step, \
+        make_prefill_step
+    cfg = rep.model.cfg
+    tol = NUMERICS_TOL["flash_attention"]
+    plain_cfg = StepConfig(use_flash=False, compute_dtype=torch.float32)
+    prefill = {"flash": make_prefill_step(cfg, StepConfig(
+        use_flash=True, compute_dtype=torch.float32)),
+        "plain": make_prefill_step(cfg, plain_cfg)}
+    batch = {"tokens": rep.prompt}
+    if rep.frontend is not None:
+        batch["frontend"] = rep.frontend
+    fields = {}
+    if routes is not None:
+        with routes.mode("compare"):
+            free, _ = prefill["plain"](rep.model, batch)
+        rel_free = _rel(rep.step_logits[0], free)
+        fields.update(free_prefill_rel_err=rel_free,
+                      routing_slots_differ=routes.slots,
+                      routing_tokens_differ=routes.tokens,
+                      routing_decisions=routes.decisions)
+        print(f"[main {label}] last-token logits, flash_attention prefill "
+              f"vs the free-running plain prefill: rel err {rel_free:.3e}; "
+              f"the plain router picked other experts in {routes.slots} "
+              f"slots, {routes.tokens} of {routes.decisions} (token, "
+              f"layer) decisions", flush=True)
+        require(rel_free <= tol or routes.tokens > 0,
+                f"{label}: free plain prefill rel err {rel_free} > {tol} "
+                f"with the routing equal")
+        del free
+    replay = routes.mode("replay") if routes is not None else \
+        contextlib.nullcontext()
+    with replay:
+        logits, caches = prefill["plain"](rep.model, batch)
+        along = " along the flash run's routing" if routes else ""
+        rel = _rel(rep.step_logits[0], logits)
+        print(f"[main {label}] last-token logits, flash_attention prefill "
+              f"vs plain{along}: rel err {rel:.3e} (tolerance {tol}), max "
+              f"abs err "
+              f"{float((rep.step_logits[0] - logits).abs().max()):.3e}",
+              flush=True)
+        require(rel <= tol,
+                f"{label}: prefill logits rel err {rel} > {tol}")
+        # the greedy decode from the plain prefill: the steps whose
+        # inputs agree (every token before them equal) must agree
+        # within tol
+        decode = make_decode_step(cfg, plain_cfg)
+        caches = serve_lm.pad_caches(caches, rep.max_seq)
+        toks, step_logits = [logits.argmax(dim=-1)[:, None]], [logits]
+        for _ in range(rep.gen_len):
+            logits, caches = decode(rep.model, {"tokens": toks[-1]}, caches)
+            toks.append(logits.argmax(dim=-1)[:, None])
+            step_logits.append(logits)
+    plain_tokens = torch.cat(toks, dim=1)
+    differ = (plain_tokens != rep.tokens).any(dim=0).nonzero()
+    first = int(differ[0]) if len(differ) else rep.gen_len + 1
+    rels = [_rel(rep.step_logits[s], step_logits[s])
+            for s in range(min(first + 1, rep.gen_len + 1))]
+    require(max(rels) <= tol,
+            f"{label}: step logits rel err {rels} > {tol}")
+    if first <= rep.gen_len:
+        row = int((plain_tokens[:, first] != rep.tokens[:, first])
+                  .nonzero()[0])
+        tp, tf = int(plain_tokens[row, first]), int(rep.tokens[row, first])
+        lp, lf = step_logits[first][row], rep.step_logits[first][row]
+        print(f"[main {label}] greedy tokens agree for {first} of "
+              f"{rep.gen_len + 1} steps; step {first} row {row}: plain "
+              f"{tp}, flash {tf}; gap plain {float(lp[tp] - lp[tf]):.3e}, "
+              f"flash {float(lf[tf] - lf[tp]):.3e}", flush=True)
+    else:
+        print(f"[main {label}] greedy tokens equal at all "
+              f"{rep.gen_len + 1} steps (prefill + {rep.gen_len} decode)",
+              flush=True)
+    print(f"[main {label}] step logits rel err, flash vs plain prefill, "
+          f"steps 0..{len(rels) - 1}: max {max(rels):.3e}", flush=True)
+    warm = {"flash": [], "plain": []}
+    for kind in turns:
+        warm[kind].append(_sync_ms(torch, lambda: prefill[kind](
+            rep.model, batch)))
+    print(f"[main {label}] warm prefill ms, flash {warm['flash']}, plain "
+          f"{warm['plain']}; card {info['nvidia_smi']}", flush=True)
+    fields.update(prefill_rel_err=rel, step_rel_err_max=max(rels),
+                  tokens_agree_steps=first, warm_prefill_ms=warm)
+    return fields, decode, toks[-1], caches
+
+
 def phase_path_d(torch, info: dict) -> tuple:
     """glm4-9b served at its published widths: the prefill's attention on
     flash_attention (one launch a layer), decode steps on the plain
     product. Then the same prefill with ``use_flash=False``, all plain
     PyTorch, on the same weights and prompts: last-token logits within
-    the kernel's tolerance, and the greedy decode from it."""
+    the kernel's tolerance, and the greedy decode from it; warm prefills
+    in turns plain, flash, flash, plain; a profile of decode steps."""
     from repro_torch import serve_lm
-    from repro_torch.core.executor import NUMERICS_TOL
-    from repro_torch.train.steps import StepConfig, make_decode_step, \
-        make_prefill_step
     rep, launches = drive(torch, "D", lambda: serve_lm.main(
         _live_args("glm4-9b")))
     cfg = rep.model.cfg
@@ -529,63 +695,82 @@ def phase_path_d(torch, info: dict) -> tuple:
     require(launches == {"matmul_int8": 0, "flash_attention": cfg.n_layers,
                          "ssd_scan": 0}, f"D: launches {launches}")
     summary = _live_summary("D", rep, info)
-    tol = NUMERICS_TOL["flash_attention"]
-    plain_cfg = StepConfig(use_flash=False, compute_dtype=torch.float32)
-    prefill = {"flash": make_prefill_step(cfg, StepConfig(
-        use_flash=True, compute_dtype=torch.float32)),
-        "plain": make_prefill_step(cfg, plain_cfg)}
-    batch = {"tokens": rep.prompt}
-    logits, caches = prefill["plain"](rep.model, batch)
-    rel = _rel(rep.step_logits[0], logits)
-    print(f"[main D] last-token logits, flash_attention prefill vs plain: "
-          f"rel err {rel:.3e} (tolerance {tol}), max abs err "
-          f"{float((rep.step_logits[0] - logits).abs().max()):.3e}",
-          flush=True)
-    require(rel <= tol, f"D: prefill logits rel err {rel} > {tol}")
-    # the greedy decode from the plain prefill: the steps whose inputs
-    # agree (every token before them equal) must agree within tol
-    decode = make_decode_step(cfg, plain_cfg)
-    caches = serve_lm.pad_caches(caches, rep.max_seq)
-    toks, step_logits = [logits.argmax(dim=-1)[:, None]], [logits]
-    for _ in range(rep.gen_len):
-        logits, caches = decode(rep.model, {"tokens": toks[-1]}, caches)
-        toks.append(logits.argmax(dim=-1)[:, None])
-        step_logits.append(logits)
-    plain_tokens = torch.cat(toks, dim=1)
-    differ = (plain_tokens != rep.tokens).any(dim=0).nonzero()
-    first = int(differ[0]) if len(differ) else rep.gen_len + 1
-    rels = [_rel(rep.step_logits[s], step_logits[s])
-            for s in range(min(first + 1, rep.gen_len + 1))]
-    require(max(rels) <= tol, f"D: step logits rel err {rels} > {tol}")
-    if first <= rep.gen_len:
-        row = int((plain_tokens[:, first] != rep.tokens[:, first])
-                  .nonzero()[0])
-        tp, tf = int(plain_tokens[row, first]), int(rep.tokens[row, first])
-        lp, lf = step_logits[first][row], rep.step_logits[first][row]
-        print(f"[main D] greedy tokens agree for {first} of "
-              f"{rep.gen_len + 1} steps; step {first} row {row}: plain "
-              f"{tp}, flash {tf}; gap plain {float(lp[tp] - lp[tf]):.3e}, "
-              f"flash {float(lf[tf] - lf[tp]):.3e}", flush=True)
-    else:
-        print(f"[main D] greedy tokens equal at all {rep.gen_len + 1} steps "
-              f"(prefill + {rep.gen_len} decode)", flush=True)
-    print(f"[main D] step logits rel err, flash vs plain prefill, steps "
-          f"0..{len(rels) - 1}: max {max(rels):.3e}", flush=True)
-    # warm prefills in turns, plain, flash, flash, plain
-    warm = {"flash": [], "plain": []}
-    for kind in ("plain", "flash", "flash", "plain"):
-        warm[kind].append(_sync_ms(torch, lambda: prefill[kind](
-            rep.model, batch)))
-    print(f"[main D] warm prefill ms, flash {warm['flash']}, plain "
-          f"{warm['plain']}; card {info['nvidia_smi']}", flush=True)
-    profiled = _profile_decode(torch, "D", info, decode, rep.model, toks[-1],
+    fields, decode, tok, caches = _flash_vs_plain(
+        torch, "D", rep, info, ("plain", "flash", "flash", "plain"))
+    profiled = _profile_decode(torch, "D", info, decode, rep.model, tok,
                                serve_lm.pad_caches(caches, rep.max_seq + 8))
-    summary.update(prefill_rel_err=rel, step_rel_err_max=max(rels),
-                   tokens_agree_steps=first, warm_prefill_ms=warm,
-                   decode_profile=profiled)
-    del rep, logits, caches, step_logits, toks, prefill, decode, batch
+    summary.update(fields, decode_profile=profiled)
+    del rep, caches, decode, tok
     _free(torch)
     return summary, launches
+
+
+#: Paths F-I: the other families served live at published widths, as D:
+#: (label, arch, flash_attention launches a prefill). The hybrid launches
+#: once a group (its shared attention block), not once a layer; the
+#: encoder-decoder once a decoder layer (its encoder and cross-attention
+#: run the plain product, as the reference's).
+LIVE_FAMILIES = (("F", "qwen2-moe-a2.7b", 24), ("G", "zamba2-1.2b", 6),
+                 ("H", "pixtral-12b", 40), ("I", "seamless-m4t-large-v2",
+                                            24))
+
+
+def phase_path_family(torch, info: dict, label: str, arch: str,
+                      want: int) -> tuple:
+    """``arch`` served live at its published widths (float32, 4 prompts
+    of 512 tokens behind the vlm's 1024 stub patch embeddings, 16 greedy
+    tokens): exactly ``want`` flash_attention launches in the prefill and
+    none in a decode step; then the all-plain prefill on the same weights
+    and inputs (for a MoE model, free-running and along the live run's
+    recorded routing, `RouteLog`), one warm prefill of each kind; a
+    profile of decode steps as in D. The model is freed before the next
+    path."""
+    from repro_torch import serve_lm
+    from repro_torch.configs import get_config
+    routes = RouteLog() if get_config(arch).family == "moe" else None
+    with routes.mode("record") if routes else contextlib.nullcontext():
+        rep, launches = drive(torch, label, lambda: serve_lm.main(
+            _live_args(arch)))
+    none = {"flash_attention": 0, "ssd_scan": 0}
+    require(rep.launches["prefill"] == dict(none, flash_attention=want),
+            f"{label}: prefill launches {rep.launches['prefill']}, want "
+            f"{want} flash_attention")
+    require(all(d == none for d in rep.launches["decode"]),
+            f"{label}: decode launches {rep.launches['decode']}")
+    require(launches == {"matmul_int8": 0, "flash_attention": want,
+                         "ssd_scan": 0}, f"{label}: launches {launches}")
+    summary = _live_summary(label, rep, info)
+    fields, decode, tok, caches = _flash_vs_plain(
+        torch, label, rep, info, ("plain", "flash"), routes)
+    profiled = _profile_decode(torch, label, info, decode, rep.model, tok,
+                               serve_lm.pad_caches(caches, rep.max_seq + 8))
+    summary.update(fields, family=rep.model.cfg.family,
+                   n_params=sum(p.numel() for p in rep.model.parameters()),
+                   prefill_positions=rep.prefix + rep.prompt_len,
+                   decode_profile=profiled)
+    del rep, fields, routes, decode, tok, caches
+    _free(torch)
+    return summary, launches
+
+
+def phase_traffic(info: dict) -> dict:
+    """``serve_lm --traffic`` once: the request-level simulator over
+    reduced glm4-9b, continuous batching against the serial baseline (the
+    demo raises unless batching is no slower). Host code only."""
+    from repro_torch import serve_lm
+    t0 = time.monotonic()
+    rep, ser = serve_lm.main(["--traffic"])
+    s, ss = rep.summary(), ser.summary()
+    require(rep.makespan_cycles <= ser.makespan_cycles and
+            s["n_finished"] == 16, f"traffic: {s} vs serial {ss}")
+    out = {"batched": s, "serial": ss, "wall_s": time.monotonic() - t0}
+    print(f"[traffic] {s['n_finished']} requests served: makespan "
+          f"{s['makespan_cycles']:.6g} cycles batched vs "
+          f"{ss['makespan_cycles']:.6g} serial, {s['tokens_per_sec']:.6g} "
+          f"vs {ss['tokens_per_sec']:.6g} tokens/s (simulated at 1 GHz), "
+          f"{s['n_merged_iterations']} merged iterations; host "
+          f"{out['wall_s']:.2f} s; card {info['nvidia_smi']}", flush=True)
+    return out
 
 
 def phase_path_e(torch, info: dict) -> tuple:
@@ -867,6 +1052,20 @@ def flash_rows(torch, plan, out_c, timer) -> list[dict]:
                        dt) + select_flash_blocks(
                           LIVE_PROMPT, LIVE_PROMPT, hd, bytes_el=el,
                           batch_heads=LIVE_BATCH * h, n_sms=sms)))
+        # paths F-I's prefill attention (4 prompts; the vlm's 1024 stub
+        # patch positions in front of the prompt), float32 as they serve
+        if main:
+            for label, arch, want in LIVE_FAMILIES:
+                fcfg = get_config(arch)
+                fl = LIVE_PROMPT + (fcfg.frontend_seq
+                                    if fcfg.family == "vlm" else 0)
+                fh, fhd = fcfg.n_heads, fcfg.resolved_head_dim
+                cases.append((label, want, None,
+                              f"{arch} live prefill attention",
+                              (LIVE_BATCH, fl, fl, fh, fhd, True, dt) +
+                              select_flash_blocks(
+                                  fl, fl, fhd, bytes_el=el,
+                                  batch_heads=LIVE_BATCH * fh, n_sms=sms)))
         # path C's minicpm-2b exec_decode step (16 sequences against a
         # 256-entry cache, 36 heads of 64), at every block_k
         cases += [(None, 0, None, "minicpm-2b exec_decode",
@@ -1131,6 +1330,11 @@ def main() -> int:
     live_e, launch_e = phase_path_e(torch, info)
     launches = {"A": launch_a, "B": launch_b, "C": launch_c, "D": launch_d,
                 "E": launch_e}
+    lives = {"D": live_d, "E": live_e}
+    for label, arch, want in LIVE_FAMILIES:
+        lives[label], launches[label] = phase_path_family(torch, info, label,
+                                                          arch, want)
+    traffic = phase_traffic(info)
     plans = [("A", rep_a.plan), ("B", rep_b.plan)]
     timer = Timer(torch)
     mm = matmul_rows(torch, plans, timer)
@@ -1148,9 +1352,10 @@ def main() -> int:
               f"err {rep.max_rel_err:.3e}; card {info['nvidia_smi']}")
     print(f"[main C] report: pooled spearman {out_c['pooled_rank_corr']} "
           f"over {out_c['n_rank_points']} points; card {info['nvidia_smi']}")
-    for label, live in (("D", live_d), ("E", live_e)):
+    for label, live in lives.items():
         print(f"[main {label}] report: {json.dumps(live)}; card "
               f"{info['nvidia_smi']}")
+    print(f"[traffic] report: {json.dumps(traffic)}")
     print(f"[smoke] all phases passed in {time.monotonic() - t0:.1f} s",
           flush=True)
     print(info["nvidia_smi"])

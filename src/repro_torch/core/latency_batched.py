@@ -330,10 +330,12 @@ def evaluate_batch(pb: PackedBatch, backend: str | None = None
                    ) -> BatchScores:
     """Evaluate a packed batch. ``backend``: "numpy" | None (the NumPy
     loop either way). The reference's jitted backend has no counterpart
-    here yet: a torch backend is a later item of the port (ROADMAP A.9)."""
+    here yet: a torch backend is a later item of the port (ROADMAP Queue
+    A, the batched scorer's torch backend)."""
     if backend not in (None, "numpy"):
         raise NotImplementedError(
-            f"batched backend {backend!r} is not ported (ROADMAP A.9)")
+            f"batched backend {backend!r} is not ported (ROADMAP Queue A, "
+            f"the batched scorer's torch backend)")
     cyc, en, edp, ideal, feas = _eval_numpy(pb)
     if pb.gated:
         # gated packs hold identity padding in infeasible rows

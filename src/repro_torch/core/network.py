@@ -231,7 +231,8 @@ def optimize_network(layers: Sequence[wl.Layer], arch: CimArch | None = None,
     """Optimize every layer of a network and aggregate latency/energy/EDP.
 
     ``mesh`` is kept for signature parity with the reference and raises
-    ``NotImplementedError``: the mesh pipeline is not ported (ROADMAP A.8).
+    ``NotImplementedError``: the mesh pipeline is not ported (ROADMAP
+    Queue A, the mesh).
 
     ``warm_starts`` maps `layer_cache_key` -> mapping JSON; for MIP modes
     each matching unique layer's solve receives that mapping as an extra
@@ -271,7 +272,8 @@ def optimize_network(layers: Sequence[wl.Layer], arch: CimArch | None = None,
     if mesh is not None:
         # the reference's mesh pipeline (`core/mesh.py`) is not re-hosted
         raise NotImplementedError(
-            "multi-chip mesh optimization is not ported (ROADMAP A.8)")
+            "multi-chip mesh optimization is not ported (ROADMAP Queue A, "
+            "the mesh)")
     assert arch is not None, "either arch or mesh is required"
 
     t0 = time.monotonic()

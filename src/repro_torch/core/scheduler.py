@@ -623,4 +623,5 @@ def cross_check(schedule: Schedule, arch: CimArch, *,
 
 # The reference's mesh schedule (`MeshStagePlan` ... `cross_check_mesh`,
 # the (chip, core) placement over a `mesh.MeshArch`) is not copied: it
-# reaches `core/mesh.py`, which the port has not re-hosted (ROADMAP A.8).
+# reaches `core/mesh.py`, which the port has not re-hosted (ROADMAP Queue
+# A, the mesh).

@@ -1,9 +1,14 @@
 """Weights carried across: the reference's parameter tree, as numpy
 arrays, into the port's model.
 
-The reference keeps each per-layer parameter stacked along a leading
-layer axis (``blocks.attn.wq.w`` of shape (n_layers, d, h*hd)); here each
-layer is its own module (``blocks.<i>.attn.wq.w``). Values are copied
+The reference keeps each stack of layers along a leading layer axis
+(``blocks.attn.wq.w`` of shape (n_layers, d, h*hd)); here each layer is
+its own module (``blocks.<i>.attn.wq.w``). The stacks are ``blocks``,
+the hybrid's ``tail`` and the encoder-decoder's ``enc_blocks``; each is
+split by its own leading axis, which must be the model's count of that
+stack (the hybrid's ``blocks`` hold the grouped layers only). A MoE
+expert bank keeps its expert axis inside a layer
+(``blocks.<i>.moe.experts.up.w`` is (E, D, F)). Values are copied
 exactly, in the tree's dtype (bfloat16 included), and a name or shape the
 model does not have, or a parameter the tree does not fill, raises.
 """
@@ -63,18 +68,24 @@ def load_numpy(module: nn.Module, flat: Mapping[str, np.ndarray],
     return module
 
 
+STACKS = ("blocks", "tail", "enc_blocks")
+
+
 def params_from_numpy(cfg: ModelConfig, tree: Mapping, device=None) -> LM:
     """``tree``: the reference's ``init_model(key, cfg)`` mapped to numpy
     (``jax.tree.map(np.asarray, params)``). Returns the port's model on
     ``device`` holding those values."""
+    model = init_model(cfg, None, device="meta")
     flat = flatten(tree)
-    stacked = [name for name in flat if name.startswith("blocks.")]
-    for name in stacked:
+    for name in list(flat):
+        stack, _, rest = name.partition(".")
+        if stack not in STACKS or not hasattr(model, stack):
+            continue        # unstacked, or a stack the model lacks: raises
+        n = len(getattr(model, stack))
         arr = flat.pop(name)
-        if arr.ndim == 0 or arr.shape[0] != cfg.n_layers:
+        if arr.ndim == 0 or arr.shape[0] != n:
             raise ValueError(f"{name}: leading axis {arr.shape[:1]} is not "
-                             f"the {cfg.n_layers} layers")
-        rest = name[len("blocks."):]
-        for i in range(cfg.n_layers):
-            flat[f"blocks.{i}.{rest}"] = arr[i]
-    return load_numpy(init_model(cfg, None, device="meta"), flat, device)
+                             f"the model's {n} {stack}")
+        for i in range(n):
+            flat[f"{stack}.{i}.{rest}"] = arr[i]
+    return load_numpy(model, flat, device)

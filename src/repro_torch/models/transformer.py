@@ -1,7 +1,16 @@
-"""Model assembly for the ``dense`` and ``ssm`` families.
+"""Model assembly for every architecture family of the registry.
 
-  dense : pre-norm GQA blocks + (gated) MLP
-  ssm   : Mamba2 (SSD) blocks, attention-free
+  dense  : pre-norm GQA blocks + (gated) MLP
+  moe    : GQA blocks + routed experts (+ shared experts / Arctic's dense
+           residual MLP)
+  vlm    : the dense decoder, with precomputed frontend embeddings (stubbed
+           image patches) in front of the text in prefill
+  ssm    : Mamba2 (SSD) blocks, attention-free
+  hybrid : Mamba2 backbone + one parameter-shared attention block after
+           every ``attn_every`` Mamba2 blocks (Zamba2), then a tail
+  encdec : bidirectional encoder over precomputed frontend embeddings
+           (stubbed audio frames) + causal decoder with cross-attention
+           (Seamless backbone)
 
 The reference stacks each family's layers along a leading axis and scans
 over them; here they are an ``nn.ModuleList`` and a Python loop, and the
@@ -10,8 +19,8 @@ reference's scan returns them. Modes:
   "prefill" tokens -> logits + caches
   "decode"  one token + caches -> logits + caches
 
-The ``moe``, ``vlm``, ``hybrid`` and ``encdec`` families and the training
-mode are not ported yet (ROADMAP Queue A, items 4 and 5): they raise.
+The training mode is not ported yet (ROADMAP Queue A, the train step): it
+raises.
 """
 
 from __future__ import annotations
@@ -23,23 +32,27 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import Attention, attention
-from repro_torch.models.layers import MLP, Embedding, RMSNorm, embed, \
-    init_parameters, mlp, rms_norm, unembed
+from repro_torch.models.attention import Attention, _repeat_kv, attention, \
+    dot_attention
+from repro_torch.models.layers import MLP, Embedding, RMSNorm, dense, \
+    embed, init_parameters, mlp, rms_norm, unembed
+from repro_torch.models.moe import MoE, moe
 from repro_torch.models.ssm import Mamba2, mamba2_block
 
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-            f"port runs {FAMILIES}; ROADMAP Queue A item 4 brings moe, "
-            f"vlm, hybrid and encdec")
+        raise ValueError(f"family {cfg.family!r} ({cfg.name}) is not one "
+                         f"of {FAMILIES}")
 
 
 class AttnBlock(nn.Module):
+    """``ln1``, ``attn``, ``ln2`` and the feed-forward: ``mlp``, or in the
+    ``moe`` family ``moe`` (with ``mlp`` beside it under Arctic's
+    ``dense_residual``)."""
+
     def __init__(self, cfg: ModelConfig, *, dtype=torch.float32,
                  device=None):
         super().__init__()
@@ -48,7 +61,26 @@ class AttnBlock(nn.Module):
         self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                               cfg.resolved_head_dim, **kw)
         self.ln2 = RMSNorm(cfg.d_model, device=device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.gated_mlp, **kw)
+        if cfg.n_experts and cfg.family == "moe":
+            self.moe = MoE(cfg.d_model, cfg.moe_d_ff, cfg.n_experts,
+                           cfg.n_shared_experts, cfg.gated_mlp, **kw)
+            if cfg.dense_residual:
+                self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.gated_mlp, **kw)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.gated_mlp, **kw)
+
+
+class CrossBlock(AttnBlock):
+    """A decoder block of the ``encdec`` family: the attention block with
+    a cross-attention (``ln_x``, ``xattn``) over the encoder's memory."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype=torch.float32,
+                 device=None):
+        super().__init__(cfg, dtype=dtype, device=device)
+        self.ln_x = RMSNorm(cfg.d_model, device=device)
+        self.xattn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.resolved_head_dim, dtype=dtype,
+                               device=device)
 
 
 class MambaBlock(nn.Module):
@@ -62,9 +94,20 @@ class MambaBlock(nn.Module):
                             conv=cfg.ssm_conv, dtype=dtype, device=device)
 
 
+def hybrid_groups(cfg: ModelConfig) -> tuple[int, int]:
+    """(groups, layers in groups) of a hybrid model: each group is
+    ``attn_every`` Mamba2 blocks and the shared attention block; the
+    ``n_layers - grouped`` blocks after them are the tail."""
+    n_groups = cfg.n_layers // cfg.attn_every
+    return n_groups, n_groups * cfg.attn_every
+
+
 class LM(nn.Module):
     """The parameters of one model, under the reference's names:
-    ``embed``, ``ln_f``, ``unembed`` (unless tied) and ``blocks``."""
+    ``embed``, ``ln_f``, ``unembed`` (unless tied) and ``blocks``; the
+    hybrid's ``tail`` (when the groups leave layers over) and
+    ``shared_attn``; the encoder-decoder's ``enc_blocks`` and ``ln_enc``.
+    """
 
     def __init__(self, cfg: ModelConfig, *, dtype=torch.float32,
                  device=None):
@@ -72,13 +115,27 @@ class LM(nn.Module):
         _check_family(cfg)
         self.cfg = cfg
         kw = dict(dtype=dtype, device=device)
+        stack = lambda block, n: nn.ModuleList(block(cfg, **kw)
+                                               for _ in range(n))
         self.embed = Embedding(cfg.padded_vocab(), cfg.d_model, **kw)
         self.ln_f = RMSNorm(cfg.d_model, device=device)
         if not cfg.tie_embeddings:
             self.unembed = Embedding(cfg.padded_vocab(), cfg.d_model, **kw)
-        block = AttnBlock if cfg.family == "dense" else MambaBlock
-        self.blocks = nn.ModuleList(block(cfg, **kw)
-                                    for _ in range(cfg.n_layers))
+        fam = cfg.family
+        if fam in ("dense", "moe", "vlm"):
+            self.blocks = stack(AttnBlock, cfg.n_layers)
+        elif fam == "ssm":
+            self.blocks = stack(MambaBlock, cfg.n_layers)
+        elif fam == "hybrid":
+            _, grouped = hybrid_groups(cfg)
+            self.blocks = stack(MambaBlock, grouped)
+            if cfg.n_layers > grouped:
+                self.tail = stack(MambaBlock, cfg.n_layers - grouped)
+            self.shared_attn = AttnBlock(cfg, **kw)
+        else:                                           # encdec
+            self.enc_blocks = stack(AttnBlock, cfg.encoder_layers)
+            self.blocks = stack(CrossBlock, cfg.n_layers)
+            self.ln_enc = RMSNorm(cfg.d_model, device=device)
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator | None,
@@ -99,6 +156,7 @@ def init_model(cfg: ModelConfig, generator: torch.Generator | None,
 class ForwardOut:
     logits: torch.Tensor
     caches: Any = None
+    aux_loss: torch.Tensor | None = None
 
 
 def _layer(stack, i: int):
@@ -111,64 +169,187 @@ def _stacked(per_layer: list):
                                 for ts in zip(*per_layer)))
 
 
+def _cross_attention(blk: CrossBlock, x, cfg: ModelConfig, memory,
+                     mem_cross_kv):
+    """The decoder's attention over the encoder's memory: K and V from
+    ``memory`` (prefill) or the cache's ``mem_cross_kv`` (decode), no
+    RoPE, no mask, the plain product as in the reference. Returns (x,
+    (k, v))."""
+    hd = cfg.resolved_head_dim
+    hx = rms_norm(blk.ln_x, x, cfg.norm_eps)
+    b, l, _ = hx.shape
+    q = dense(blk.xattn.wq, hx).reshape(b, l, cfg.n_heads, hd)
+    if mem_cross_kv is None:
+        s = memory.shape[1]
+        k = dense(blk.xattn.wk, memory).reshape(b, s, cfg.n_kv_heads, hd)
+        v = dense(blk.xattn.wv, memory).reshape(b, s, cfg.n_kv_heads, hd)
+    else:
+        k, v = mem_cross_kv
+    rep = cfg.n_heads // cfg.n_kv_heads
+    o = dot_attention(q, _repeat_kv(k, rep), _repeat_kv(v, rep),
+                      causal=False)
+    return x + dense(blk.xattn.wo, o.reshape(b, l, -1)), (k, v)
+
+
 def _attn_block_apply(blk: AttnBlock, x, cfg: ModelConfig, cache, *,
-                      causal: bool, use_flash: bool):
+                      causal: bool, use_flash: bool, memory=None,
+                      mem_cross_kv=None):
+    """Returns (x, new KV cache, the MoE aux loss or None, the cross K/V
+    or None)."""
     h = rms_norm(blk.ln1, x, cfg.norm_eps)
     attn_out, new_cache = attention(
         blk.attn, h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
         causal=causal, cache=cache, use_flash=use_flash)
     x = x + attn_out
+    cross_kv = aux = None
+    if memory is not None or mem_cross_kv is not None:
+        x, cross_kv = _cross_attention(blk, x, cfg, memory, mem_cross_kv)
     h = rms_norm(blk.ln2, x, cfg.norm_eps)
-    return x + mlp(blk.mlp, h, cfg.gated_mlp), new_cache
+    if hasattr(blk, "moe"):
+        out, aux = moe(blk.moe, h, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                       gated=cfg.gated_mlp)
+        if hasattr(blk, "mlp"):                 # Arctic's dense residual
+            out = out + mlp(blk.mlp, h, cfg.gated_mlp)
+    else:
+        out = mlp(blk.mlp, h, cfg.gated_mlp)
+    return x + out, new_cache, aux, cross_kv
 
 
-def _attn_stack(blocks, x, cfg, caches, *, use_flash):
+def _attn_stack(blocks, x, cfg, caches, *, causal: bool, use_flash: bool):
     """caches: stacked per-layer KVCache for decode, or None (prefill
-    collects fresh ones)."""
-    new = []
+    collects fresh ones). Returns (x, the summed aux loss or None,
+    stacked caches)."""
+    new, aux = [], None
     for i, blk in enumerate(blocks):
-        x, c = _attn_block_apply(
+        x, c, aux_l, _ = _attn_block_apply(
             blk, x, cfg, None if caches is None else _layer(caches, i),
-            causal=True, use_flash=use_flash)
+            causal=causal, use_flash=use_flash)
         new.append(c)
-    return x, _stacked(new)
+        if aux_l is not None:
+            aux = aux_l if aux is None else aux + aux_l
+    return x, aux, _stacked(new)
+
+
+def _mamba_layer(blk: MambaBlock, x, cfg, state):
+    """One residual Mamba2 layer. The model's SSM layers call
+    ``mamba2_block`` without ``use_kernel``, as the reference's
+    ``_ssm_stack`` and ``_hybrid_stack`` do: its forward runs the plain
+    SSD product."""
+    out, st = mamba2_block(blk.mamba, rms_norm(blk.ln, x, cfg.norm_eps), cfg,
+                           state=state)
+    return x + out, st
 
 
 def _ssm_stack(blocks, x, cfg, states, is_decode):
-    """The model's SSM layers call ``mamba2_block`` without ``use_kernel``,
-    as the reference's ``_ssm_stack`` does: its forward runs the plain
-    SSD product."""
     new = []
     for i, blk in enumerate(blocks):
-        h = rms_norm(blk.ln, x, cfg.norm_eps)
-        out, st = mamba2_block(blk.mamba, h, cfg, state=_layer(states, i)
-                               if is_decode else None)
-        x = x + out
+        x, st = _mamba_layer(blk, x, cfg,
+                             _layer(states, i) if is_decode else None)
         new.append(st)
     return x, _stacked(new)
 
 
+def _hybrid_stack(params: LM, x, cfg, caches, is_decode, use_flash):
+    """Groups of ``attn_every`` Mamba2 blocks, each followed by the one
+    parameter-shared attention block, then the tail. caches: (SSM states
+    stacked over n_layers, KV caches stacked over the groups); prefill
+    makes fresh ones (the reference's dummy caches only shape its scan)."""
+    n_groups, grouped = hybrid_groups(cfg)
+    states, kv = caches if is_decode else (None, None)
+    layers = list(params.blocks) + list(getattr(params, "tail", ()))
+    new_states, new_kv = [], []
+
+    def mamba(i, x):
+        x, st = _mamba_layer(layers[i], x, cfg,
+                             _layer(states, i) if is_decode else None)
+        new_states.append(st)
+        return x
+
+    for g in range(n_groups):
+        for i in range(g * cfg.attn_every, (g + 1) * cfg.attn_every):
+            x = mamba(i, x)
+        x, c, _, _ = _attn_block_apply(
+            params.shared_attn, x, cfg, _layer(kv, g) if is_decode else None,
+            causal=True, use_flash=use_flash)
+        new_kv.append(c)
+    for i in range(grouped, cfg.n_layers):
+        x = mamba(i, x)
+    return x, (_stacked(new_states), _stacked(new_kv))
+
+
+def _encdec_stack(params: LM, x, cfg, caches, frontend_embeds, is_decode,
+                  compute_dtype, use_flash):
+    """Prefill encodes the frontend embeddings bidirectionally (the plain
+    product, ``use_flash=False`` as in the reference) into the memory and
+    computes each decoder layer's cross K/V from it; decode reads them
+    from the caches (self KV, (cross K, cross V), memory)."""
+    if is_decode:
+        kv, cross_kvs, memory = caches
+    else:
+        if frontend_embeds is None:
+            raise ValueError("the encdec family needs frontend embeddings")
+        m, _, _ = _attn_stack(params.enc_blocks,
+                              frontend_embeds.to(compute_dtype), cfg, None,
+                              causal=False, use_flash=False)
+        memory = rms_norm(params.ln_enc, m, cfg.norm_eps)
+        kv = cross_kvs = None
+    new_kv, new_ck, new_cv = [], [], []
+    for i, blk in enumerate(params.blocks):
+        ckv = None if cross_kvs is None else (cross_kvs[0][i],
+                                              cross_kvs[1][i])
+        x, c, _, (ck, cv) = _attn_block_apply(
+            blk, x, cfg, None if kv is None else _layer(kv, i), causal=True,
+            use_flash=use_flash, memory=memory if ckv is None else None,
+            mem_cross_kv=ckv)
+        new_kv.append(c)
+        new_ck.append(ck)
+        new_cv.append(cv)
+    return x, (_stacked(new_kv), (torch.stack(new_ck), torch.stack(new_cv)),
+               memory)
+
+
 def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor, *,
             mode: str = "prefill", caches: Any = None,
+            frontend_embeds: torch.Tensor | None = None,
             use_flash: bool = False,
             compute_dtype=torch.bfloat16) -> ForwardOut:
-    """tokens: (B, L) integer ids."""
+    """tokens: (B, L) integer ids. frontend_embeds: (B, S_front, D)
+    precomputed embeddings of the stubbed modality: the ``vlm`` prefill
+    puts them in front of the text (and drops their positions from the
+    logits), the ``encdec`` prefill encodes them; decode reads neither."""
     _check_family(cfg)
     if mode not in ("prefill", "decode"):
         raise NotImplementedError(
             f"mode {mode!r}: the port serves (prefill, decode); the train "
-            f"mode comes with the training slice (ROADMAP Queue A item 5)")
+            f"mode comes with the train step (ROADMAP Queue A)")
     is_decode = mode == "decode"
     if is_decode and caches is None:
         raise ValueError("decode needs the caches of a prefill")
+    fam = cfg.family
+    prefix = frontend_embeds is not None and fam == "vlm" and not is_decode
     x = embed(params.embed, tokens, compute_dtype)
-    if cfg.family == "dense":
-        x, new_caches = _attn_stack(params.blocks, x, cfg,
-                                    caches if is_decode else None,
-                                    use_flash=use_flash)
-    else:
+    if prefix:
+        x = torch.cat([frontend_embeds.to(compute_dtype), x], dim=1)
+    aux = None
+    if fam in ("dense", "moe", "vlm"):
+        x, aux, new_caches = _attn_stack(params.blocks, x, cfg,
+                                         caches if is_decode else None,
+                                         causal=True, use_flash=use_flash)
+    elif fam == "ssm":
         x, new_caches = _ssm_stack(params.blocks, x, cfg, caches, is_decode)
+    elif fam == "hybrid":
+        x, new_caches = _hybrid_stack(params, x, cfg, caches, is_decode,
+                                      use_flash)
+    else:
+        x, new_caches = _encdec_stack(params, x, cfg, caches,
+                                      frontend_embeds, is_decode,
+                                      compute_dtype, use_flash)
     x = rms_norm(params.ln_f, x, cfg.norm_eps)
+    if prefix:
+        x = x[:, frontend_embeds.shape[1]:]
     table = params.embed if cfg.tie_embeddings else params.unembed
-    return ForwardOut(logits=unembed(table, x), caches=new_caches)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return ForwardOut(logits=unembed(table, x), caches=new_caches,
+                      aux_loss=aux)

@@ -26,16 +26,27 @@ CUDA call, and torch is imported only after the arguments are parsed.
 reference's ``decode_demo`` (``examples/serve_lm.py``): random weights
 drawn on the device from ``--seed``, float32 throughout, ``--batch``
 prompts of ``--prompt-len`` tokens prefilled (a causal prefill of 512
-tokens or more runs its attention on flash_attention), the KV caches
-padded to prompt + generated positions, then ``--gen-len`` greedy decode
-steps, with the demo's checks on the final caches:
+positions or more runs its attention on flash_attention), the
+self-attention KV caches padded to the prefill's positions plus the
+generated ones, then ``--gen-len`` greedy decode steps, with the demo's
+checks on the final caches. Every family is served; the ``vlm`` and
+``encdec`` models take stub frontend embeddings of (batch,
+``frontend_seq``, d_model), a standard normal drawn on the device after
+the weights (the vlm's sit in front of the prompt, so its caches hold
+``frontend_seq`` more positions):
 
     PYTHONPATH=src python -m repro_torch.serve_lm --live --arch glm4-9b
     PYTHONPATH=src python -m repro_torch.serve_lm --live --arch mamba2-1.3b
+    PYTHONPATH=src python -m repro_torch.serve_lm --live --arch qwen2-moe-a2.7b
     PYTHONPATH=src python -m repro_torch.serve_lm --live --reduced --device cpu
 
-The ``dense`` and ``ssm`` families are served (glm4-9b, mamba2-1.3b, ...);
-the others raise until their models are ported.
+``--traffic`` serves a seeded Poisson request stream through the
+request-level simulator (`core/serving.py`) instead, the reference's
+``traffic_demo``: continuous batching against the serial baseline on
+reduced glm4-9b, iteration costs from greedy solves of the stack. It runs
+no device code, so ``--device`` does not apply:
+
+    PYTHONPATH=src python -m repro_torch.serve_lm --traffic --n-requests 16
 """
 
 from __future__ import annotations
@@ -48,7 +59,8 @@ from typing import Any
 
 def main(argv=None):
     """Solve, lower and execute, and return the ``ExecReport``; with
-    ``--live``, serve the model and return the ``LiveReport``."""
+    ``--live``, serve the model and return the ``LiveReport``; with
+    ``--traffic``, the (continuous batching, serial) ``ServeReport``s."""
     from repro_torch.configs import ARCH_IDS, SHAPES, get_config
     from repro_torch.core.cache import MIP_MODES
 
@@ -73,7 +85,14 @@ def main(argv=None):
                     help="--live: tokens per prompt")
     ap.add_argument("--gen-len", type=int, default=16,
                     help="--live: greedy tokens decoded per prompt")
+    ap.add_argument("--traffic", action="store_true",
+                    help="serve a Poisson request stream through the "
+                         "continuous-batching simulator (no device code)")
+    ap.add_argument("--n-requests", type=int, default=16,
+                    help="--traffic: stream length")
     args = ap.parse_args(argv)
+    if args.traffic:
+        return traffic_demo(n_requests=args.n_requests, seed=args.seed)
     if args.live:
         return live(args)
 
@@ -120,16 +139,21 @@ def main(argv=None):
 class LiveReport:
     """One ``--live`` run. ``step_logits`` holds the last position's
     float32 logits of the prefill and of every decode step (gen_len + 1,
-    B, V); ``launches`` the kernel launches of the prefill and of each
-    decode step; times are wall ms, each step synchronised on the card;
+    B, V); ``frontend`` the stub frontend embeddings (vlm, encdec) or
+    None; ``prefix`` the frontend positions in front of the prompt in the
+    self-attention caches (the vlm's ``frontend_seq``, else 0);
+    ``launches`` the kernel launches of the prefill and of each decode
+    step; times are wall ms, each step synchronised on the card;
     ``peak_bytes`` is None on the CPU."""
     arch: str
     device: str
     batch: int
     prompt_len: int
     gen_len: int
+    prefix: int
     model: Any
     prompt: Any
+    frontend: Any
     tokens: Any
     step_logits: Any
     caches: Any
@@ -141,7 +165,7 @@ class LiveReport:
 
     @property
     def max_seq(self) -> int:
-        return self.prompt_len + self.gen_len
+        return self.prefix + self.prompt_len + self.gen_len
 
     @property
     def tokens_per_s(self) -> float:
@@ -159,49 +183,87 @@ def _since(before: dict[str, int]) -> dict[str, int]:
     return {k: n - before[k] for k, n in _launch_counts().items()}
 
 
-def pad_caches(caches, max_seq: int):
-    """KV caches grown along their sequence axis to ``max_seq`` positions
-    of zeros, so that decode can append (the demo's pad); SSM states have
-    no sequence axis and pass through."""
-    import torch.nn.functional as F
-
+def _self_kv(caches):
+    """The self-attention KV caches of any family's caches, or None (ssm):
+    a KVCache, the hybrid's (states, kv) or the encoder-decoder's (kv,
+    cross K/V, memory)."""
     from repro_torch.models.attention import KVCache
-    if not isinstance(caches, KVCache):
+    from repro_torch.models.ssm import SSMState
+    if isinstance(caches, KVCache):
         return caches
-    grow = max_seq - caches.k.shape[2]
+    if isinstance(caches, SSMState):
+        return None
+    return caches[1] if len(caches) == 2 else caches[0]
+
+
+def pad_caches(caches, max_seq: int):
+    """Self-attention KV caches grown along their sequence axis to
+    ``max_seq`` positions of zeros, so that decode can append (the demo's
+    pad). Only those grow: SSM states, the encoder-decoder's cross K/V
+    and memory pass through."""
+    import torch.nn.functional as F
+    kv = _self_kv(caches)
+    if kv is None:
+        return caches
+    grow = max_seq - kv.k.shape[2]
     pad = lambda t: None if t is None else F.pad(t, (0, 0, 0, 0, 0, grow))
-    return caches._replace(k=pad(caches.k), v=pad(caches.v),
-                           k_scale=pad(caches.k_scale),
-                           v_scale=pad(caches.v_scale))
+    grown = kv._replace(k=pad(kv.k), v=pad(kv.v), k_scale=pad(kv.k_scale),
+                        v_scale=pad(kv.v_scale))
+    if kv is caches:
+        return grown
+    return (caches[0], grown) if len(caches) == 2 else (grown,) + caches[1:]
 
 
-def _check_live(cfg, caches, tokens, batch: int, prompt_len: int,
-                gen_len: int) -> str:
-    """The demo's checks; returns what held."""
+def _check_live(cfg, caches, tokens, batch: int, gen_len: int,
+                max_seq: int) -> str:
+    """The demo's checks on the greedy tokens and on each family's final
+    caches; returns what held. ``max_seq``: the self-attention positions
+    (prefix + prompt + generated)."""
     import torch
-    max_seq = prompt_len + gen_len
+
+    from repro_torch.models.ssm import init_ssm_state
+    from repro_torch.models.transformer import hybrid_groups
     if tuple(tokens.shape) != (batch, gen_len + 1) or \
             bool((tokens < 0).any()):
         raise RuntimeError(f"greedy tokens {tuple(tokens.shape)}")
-    if cfg.family == "dense":
-        # the final cache length is exactly every prompt + generated
-        # token, and the last position was written (a dropped one-hot
-        # write would leave it 0)
-        if not bool((caches.length == max_seq).all()):
-            raise RuntimeError(f"cache lengths {caches.length.tolist()} != "
-                               f"{prompt_len} + {gen_len}")
-        if not bool((caches.k[:, :, max_seq - 1] != 0).any()):
+    held = []
+    kv = _self_kv(caches)
+    if kv is not None:
+        # the final cache length is exactly every position prefilled or
+        # generated, and the last position was written (a dropped
+        # one-hot write would leave it 0)
+        if not bool((kv.length == max_seq).all()):
+            raise RuntimeError(f"cache lengths {kv.length.tolist()} != "
+                               f"{max_seq}")
+        if not bool((kv.k[:, :, max_seq - 1] != 0).any()):
             raise RuntimeError("the last decode write was dropped")
-        return (f"cache length {max_seq} = {prompt_len} + {gen_len}, last "
-                f"position written")
-    from repro_torch.models.ssm import init_ssm_state
-    proto = init_ssm_state(batch, cfg, cfg.d_model)
-    for name, got, want in zip(("h", "conv"), caches, proto):
-        if tuple(got.shape) != (cfg.n_layers,) + tuple(want.shape) or \
-                not bool(torch.isfinite(got).all()):
-            raise RuntimeError(f"SSM state {name} {tuple(got.shape)}")
-    return (f"SSM states h {tuple(caches.h.shape)}, conv "
-            f"{tuple(caches.conv.shape)}")
+        held.append(f"{kv.k.shape[0]} KV caches of length {max_seq}, last "
+                    f"position written")
+    if cfg.family in ("ssm", "hybrid"):
+        states = caches if cfg.family == "ssm" else caches[0]
+        proto = init_ssm_state(batch, cfg, cfg.d_model)
+        for name, got, want in zip(("h", "conv"), states, proto):
+            if tuple(got.shape) != (cfg.n_layers,) + tuple(want.shape) or \
+                    not bool(torch.isfinite(got).all()):
+                raise RuntimeError(f"SSM state {name} {tuple(got.shape)}")
+        held.append(f"SSM states h {tuple(states.h.shape)}, conv "
+                    f"{tuple(states.conv.shape)} finite")
+    if cfg.family == "hybrid" and kv.k.shape[0] != hybrid_groups(cfg)[0]:
+        raise RuntimeError(f"{kv.k.shape[0]} KV caches, not one a group")
+    if cfg.family == "encdec":
+        (ck, cv), memory = caches[1], caches[2]
+        want = (cfg.n_layers, batch, cfg.frontend_seq, cfg.n_kv_heads,
+                cfg.resolved_head_dim)
+        if tuple(ck.shape) != want or tuple(cv.shape) != want or \
+                tuple(memory.shape) != (batch, cfg.frontend_seq,
+                                        cfg.d_model) or \
+                not all(bool(torch.isfinite(t).all()) for t in (ck, cv,
+                                                                memory)):
+            raise RuntimeError(f"cross K/V {tuple(ck.shape)}, memory "
+                               f"{tuple(memory.shape)}")
+        held.append(f"cross K/V {tuple(ck.shape)} and memory "
+                    f"{tuple(memory.shape)} finite")
+    return "; ".join(held)
 
 
 def live(args) -> LiveReport:
@@ -233,13 +295,13 @@ def live(args) -> LiveReport:
     where = torch.cuda.get_device_name(device) if on_card else "cpu"
 
     t0 = time.monotonic()
-    model = init_model(cfg, torch.Generator(device=device).manual_seed(
-        args.seed), torch.float32, device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    model = init_model(cfg, gen, torch.float32, device)
     sync()
     init_s = time.monotonic() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"[live] {cfg.name} on {where}: {cfg.n_layers} layers, "
-          f"d_model {cfg.d_model}, {n_params:,} parameters "
+    print(f"[live] {cfg.name} ({cfg.family}) on {where}: {cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {n_params:,} parameters "
           f"({4 * n_params / 1e9:.3f} GB float32), drawn in {init_s:.2f} s",
           flush=True)
 
@@ -249,15 +311,23 @@ def live(args) -> LiveReport:
     rng = np.random.default_rng(args.seed)
     prompt = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (batch, prompt_len))).to(device)
+    batch_in = {"tokens": prompt}
+    frontend = None
+    if cfg.family in ("vlm", "encdec"):
+        frontend = torch.randn((batch, cfg.frontend_seq, cfg.d_model),
+                               generator=gen, device=device)
+        batch_in["frontend"] = frontend
+    prefix = cfg.frontend_seq if cfg.family == "vlm" else 0
+    max_seq = prefix + prompt_len + gen_len
 
     before = _launch_counts()
     sync()
     t0 = time.monotonic()
-    logits, caches = prefill(model, {"tokens": prompt})
+    logits, caches = prefill(model, batch_in)
     sync()
     prefill_ms = (time.monotonic() - t0) * 1e3
     launches = {"prefill": _since(before), "decode": []}
-    caches = pad_caches(caches, prompt_len + gen_len)
+    caches = pad_caches(caches, max_seq)
     step_logits = [logits.to(torch.float32)]
     toks = [torch.argmax(logits, dim=-1)[:, None]]
     decode_ms = []
@@ -275,15 +345,18 @@ def live(args) -> LiveReport:
     step_logits = torch.stack(step_logits)
     if not bool(torch.isfinite(step_logits).all()):
         raise RuntimeError("non-finite logits")
-    held = _check_live(cfg, caches, tokens, batch, prompt_len, gen_len)
+    held = _check_live(cfg, caches, tokens, batch, gen_len, max_seq)
     peak = torch.cuda.max_memory_allocated(device) if on_card else None
     rep = LiveReport(arch=cfg.name, device=where, batch=batch,
-                     prompt_len=prompt_len, gen_len=gen_len, model=model,
-                     prompt=prompt, tokens=tokens, step_logits=step_logits,
+                     prompt_len=prompt_len, gen_len=gen_len, prefix=prefix,
+                     model=model, prompt=prompt, frontend=frontend,
+                     tokens=tokens, step_logits=step_logits,
                      caches=caches, init_s=init_s, prefill_ms=prefill_ms,
                      decode_ms=decode_ms, peak_bytes=peak, launches=launches)
     per_step = set(tuple(d.values()) for d in launches["decode"])
-    print(f"[live] prefill {batch} x {prompt_len}: {prefill_ms:.3f} ms; "
+    print(f"[live] prefill {batch} x "
+          f"{f'({prefix} + {prompt_len})' if prefix else prompt_len}: "
+          f"{prefill_ms:.3f} ms; "
           f"launches {launches['prefill']}", flush=True)
     print(f"[live] decode {gen_len} tokens x {batch} sequences: "
           f"{sum(decode_ms):.3f} ms (median "
@@ -297,7 +370,46 @@ def live(args) -> LiveReport:
     return rep
 
 
+def traffic_demo(n_requests: int = 16, seed: int = 0):
+    """Serve a seeded Poisson request stream against reduced glm4-9b:
+    iteration costs from greedy solves of the stack, continuous batching
+    against the serial baseline. Returns both ``ServeReport``s."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.arch import default_arch
+    from repro_torch.core.serving import (NetworkCostModel, RequestStream,
+                                          ServeConfig, serial_baseline,
+                                          simulate_serving)
+
+    cfg = get_config("glm4-9b").reduced()
+    arch = default_arch()
+    serve_cfg = ServeConfig(kv_capacity_tokens=512, max_batch_requests=16,
+                            max_batch_tokens=128)
+    cost = NetworkCostModel(cfg, arch, max_m=serve_cfg.max_batch_tokens,
+                            context_len=256, mode="greedy")
+    stream = RequestStream.poisson(n_requests, seed=seed,
+                                   mean_interarrival_cycles=150_000.0)
+    rep = simulate_serving(stream, cost, serve_cfg)
+    ser = serial_baseline(stream, cost, serve_cfg)
+    f = cost.freq_ghz
+    s, ss = rep.summary(f), ser.summary(f)
+    to_ms = 1.0 / (f * 1e6)
+    print(f"served {n_requests} requests on {arch.name} "
+          f"({cost.n_solves} anchor solves):")
+    print(f"  TTFT p50/p99: {s['ttft_p50_cycles'] * to_ms:.3f} / "
+          f"{s['ttft_p99_cycles'] * to_ms:.3f} ms   "
+          f"ITL p50/p99: {s['itl_p50_cycles'] * to_ms:.3f} / "
+          f"{s['itl_p99_cycles'] * to_ms:.3f} ms")
+    print(f"  continuous batching: {s['tokens_per_sec']:.4g} tok/s "
+          f"({int(s['n_merged_iterations'])} merged iterations) vs "
+          f"serial {ss['tokens_per_sec']:.4g} tok/s")
+    if rep.makespan_cycles > ser.makespan_cycles:
+        raise RuntimeError(f"continuous batching took "
+                           f"{rep.makespan_cycles} cycles, serial "
+                           f"{ser.makespan_cycles}")
+    return rep, ser
+
+
 if __name__ == "__main__":
     report = main()
-    raise SystemExit(0 if isinstance(report, LiveReport) or
+    raise SystemExit(0 if isinstance(report, (LiveReport, tuple)) or
                      report.numerics_ok else 1)

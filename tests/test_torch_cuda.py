@@ -676,3 +676,64 @@ def test_ssd_chunked_kernel_vs_plain(cuda, groups, chunk):
     assert torch.isfinite(y1).all()
     assert rel <= NUMERICS_TOL["ssd_scan"], rel
     assert torch.equal(h1, h0)
+
+
+#: The other families, reduced but served a 512-token prompt (the vlm's 8
+#: stub patch positions in front of it) so that the prefill reaches
+#: flash_attention: (arch, n_layers or None for the reduced count,
+#: flash_attention launches a prefill). zamba2 at 5 layers is 2 groups
+#: of 2 Mamba2 blocks and a tail of 1: one launch a group.
+FAMILIES = (("qwen2-moe-a2.7b", None, 2), ("arctic-480b", None, 2),
+            ("pixtral-12b", None, 2), ("zamba2-1.2b", 5, 2),
+            ("seamless-m4t-large-v2", None, 2))
+
+
+@pytest.mark.parametrize("arch,layers,want", FAMILIES)
+def test_family_prefill_flash_vs_plain_and_greedy(cuda, arch, layers, want):
+    """Each family's prefill with use_flash=True launches flash_attention
+    ``want`` times, and decode steps never; its last-token logits lie
+    within flash_attention's NUMERICS_TOL (2e-3 relative) of the
+    use_flash=False prefill on the same weights, tokens and frontend
+    embeddings; 4 greedy decode steps from both give the same tokens."""
+    import dataclasses
+
+    from repro_torch import serve_lm
+    from repro_torch.configs import get_config
+    from repro_torch.core.executor import NUMERICS_TOL
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models.transformer import init_model
+    from repro_torch.train.steps import StepConfig, make_decode_step, \
+        make_prefill_step
+    cfg = get_config(arch).reduced()
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    g = _gen(7)
+    model = init_model(cfg, g, torch.float32, cuda)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 512),
+                                     device=cuda, generator=g)}
+    if cfg.family in ("vlm", "encdec"):
+        batch["frontend"] = torch.randn((2, cfg.frontend_seq, cfg.d_model),
+                                        device=cuda, generator=g)
+    max_seq = 512 + 4 + (cfg.frontend_seq if cfg.family == "vlm" else 0)
+    tokens, last = {}, {}
+    for use_flash in (True, False):
+        step_cfg = StepConfig(use_flash=use_flash,
+                              compute_dtype=torch.float32)
+        before = fa_kernel.launches
+        logits, caches = make_prefill_step(cfg, step_cfg)(model, batch)
+        assert fa_kernel.launches - before == (want if use_flash else 0)
+        last[use_flash] = logits
+        caches = serve_lm.pad_caches(caches, max_seq)
+        decode = make_decode_step(cfg, step_cfg)
+        toks = [logits.argmax(-1)[:, None]]
+        before = fa_kernel.launches
+        for _ in range(4):
+            logits, caches = decode(model, {"tokens": toks[-1]}, caches)
+            toks.append(logits.argmax(-1)[:, None])
+        assert fa_kernel.launches == before
+        tokens[use_flash] = torch.cat(toks, 1)
+    lf, lp = last[True], last[False]
+    assert torch.isfinite(lf).all() and lf.shape == lp.shape
+    rel = float((lf.double() - lp.double()).norm() / lp.double().norm())
+    assert rel <= NUMERICS_TOL["flash_attention"], rel
+    assert torch.equal(tokens[True], tokens[False])

@@ -1,8 +1,9 @@
 """The port stands alone: nothing under `src/repro_torch/`, nor
 `chip_smoke.py`, imports JAX, the JAX package or its benchmarks, and the
-reduced slices (`serve_lm`, `exec_lm` over mamba2-1.3b, and
-``python -m repro_torch.serve_lm --live`` for glm4-9b and mamba2-1.3b)
-run in a process where none of them can be imported."""
+reduced slices (`serve_lm`, `exec_lm` over mamba2-1.3b, ``python -m
+repro_torch.serve_lm --live`` for glm4-9b, mamba2-1.3b and
+qwen2-moe-a2.7b, and ``serve_lm --traffic``) run in a process where none
+of them can be imported."""
 
 import ast
 import os
@@ -84,3 +85,28 @@ def test_slice_runs_with_jax_and_reference_blocked(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "ISOLATED-OK" in res.stdout
+
+
+def test_moe_live_and_traffic_run_with_jax_and_reference_blocked(tmp_path):
+    code = (
+        "import runpy, sys\n"
+        "sys.modules['jax'] = sys.modules['repro'] = None\n"
+        "sys.modules['benchmarks'] = None\n"
+        "for argv in (['--live', '--reduced', '--device', 'cpu', '--arch',\n"
+        "              'qwen2-moe-a2.7b'], ['--traffic']):\n"
+        "    sys.argv = ['serve_lm'] + argv\n"
+        "    try:\n"
+        "        runpy.run_module('repro_torch.serve_lm', run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, e.code\n"
+        "assert not any(m.split('.')[0] in ('jax', 'repro', 'benchmarks')\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ISOLATED-OK')\n")
+    env = dict(os.environ, MIREDO_CACHE=str(tmp_path),
+               MIREDO_REPORTS=str(tmp_path / "reports"),
+               PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "ISOLATED-OK" in res.stdout
+    assert "continuous batching:" in res.stdout

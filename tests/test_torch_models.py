@@ -528,20 +528,10 @@ def test_init_caches_match_jax(quant, monkeypatch):
         assert all(not t.any() for t in leaves)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "zamba2-1.2b",
-                                  "seamless-m4t-large-v2", "pixtral-12b"])
-def test_unported_families_raise(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        transformer.init_model(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError):
-        steps.init_caches(cfg, 1, 8)
-
-
 def test_forward_train_mode_raises():
     cfg = get_config("glm4-9b").reduced()
     model = transformer.init_model(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+    with pytest.raises(NotImplementedError, match="train step"):
         transformer.forward(model, cfg, torch.zeros((1, 4), dtype=torch.long),
                             mode="train")
 

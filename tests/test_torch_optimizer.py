@@ -117,7 +117,7 @@ def test_records_written_by_reference_are_port_cache_hits(tmp_path,
 
 def test_mesh_argument_is_not_ported():
     work = extract_workload(*_pair("glm4-9b", "decode")[0])
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(NotImplementedError, match="Queue A, the mesh"):
         optimize_network(list(work.layers), None, "greedy", mesh=object(),
                          use_cache=False)
 
@@ -131,5 +131,5 @@ def test_batched_scorer_numpy_only():
     mp = greedy_mapping(layer, arch)
     sc = lb.score_mappings([mp], layer, arch)
     assert sc.cycles[0] == evaluate(mp, layer, arch).total_cycles
-    with pytest.raises(NotImplementedError, match="A.9"):
+    with pytest.raises(NotImplementedError, match="torch backend"):
         lb.score_mappings([mp], layer, arch, backend="jax")
