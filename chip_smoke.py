@@ -42,7 +42,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
         within flash_attention's tolerance, the first greedy token that
         differs printed with its logit gap, and warm prefill times of
         both in turns; a profile of decode steps (device busy against
-        wall time). The model is freed before E;
+        wall time). It runs after E, as the first of the families' loop
+        (``LIVE_FAMILIES``), and is freed before F;
      E. ``repro_torch.serve_lm --live`` for mamba2-1.3b at its published
         widths, same traffic; its forward runs the plain SSD product, as
         the reference's does, and beside it the path runs
@@ -62,11 +63,13 @@ Phases, each of which stops the run with a non-zero exit when it fails:
         none a decode step; the all-plain prefill and its greedy decode
         on the same weights and inputs as in D, one warm prefill of each.
         F's router is discontinuous (top-k with a capacity): its plain
-        prefill runs free first (logits and the routing decisions that
-        differ from the flash run's printed, held to the tolerance when
-        none differ), then along the flash run's recorded routing for the
-        held comparison and the greedy decode; a profile of decode steps
-        as in D;
+        prefill runs free first, the tokens whose experts part printed
+        layer by layer; up to the first MoE layer where they part, the
+        router probabilities must hold the tolerance, and each parted
+        decision there must be a near-tie (or, with none parted, the
+        logits hold the tolerance); then the plain prefill runs along
+        the flash run's recorded routing for the held comparison and the
+        greedy decode; a profile of decode steps as in D;
      D-I pass the demo's checks: cache length exactly the prefilled +
      generated positions and the last position written (D, F-I), the SSM
      states' shapes (E, G), the cross K/V and memory (I); their lines
@@ -530,26 +533,29 @@ def _free(torch) -> None:
 
 class RouteLog:
     """The experts every MoE layer's router picks, in call order
-    (``models.moe.top_k_experts`` wrapped while a mode is on):
-    ``record`` keeps them; ``compare`` counts the routing slots, and the
-    tokens, whose experts differ from the record's call by call;
-    ``replay`` counts them too and hands the recorded experts back (their
-    gates are this run's probabilities, renormalised as usual). A top-k
-    router is discontinuous: a near-tie that the flash and the plain
-    attention resolve apart moves a token by a whole expert, so the plain
-    prefill is held to the kernel's tolerance along the flash run's
-    routing, and the free-running one beside it."""
+    (``models.moe.top_k_experts`` wrapped while a mode is on): ``record``
+    keeps each call's probabilities and experts; ``compare`` holds this
+    run's against the record's call by call (one call a layer): the
+    tokens whose experts part, the router probabilities' relative error,
+    and for each parted token the gap between the swapped experts' (the
+    largest probability this run picked that the record did not, less the
+    smallest the record picked that this run did not) against ``2 * tol *
+    max(probs)``, the most a change of ``tol`` of the largest probability
+    can swap; ``replay`` hands the recorded experts back (their gates are
+    this run's probabilities, renormalised as usual). A top-k router is
+    discontinuous: a near-tie that the flash and the plain attention
+    resolve apart moves a token by a whole expert, and each such move
+    shifts the capacity slots of the tokens behind it."""
 
-    def __init__(self):
+    def __init__(self, tol: float):
         from repro_torch.models import moe as moe_mod
         self.moe, self.orig = moe_mod, moe_mod.top_k_experts
-        self.calls, self.kind, self.i = [], None, 0
-        self.slots = self.tokens = self.decisions = 0
+        self.tol, self.calls, self.kind, self.i = tol, [], None, 0
+        self.layers = []
 
     @contextlib.contextmanager
     def mode(self, kind: str):
-        self.kind, self.i = kind, 0
-        self.slots = self.tokens = self.decisions = 0
+        self.kind, self.i, self.layers = kind, 0, []
         self.moe.top_k_experts = self
         try:
             yield self
@@ -559,16 +565,28 @@ class RouteLog:
     def __call__(self, probs, k):
         values, idx = self.orig(probs, k)
         if self.kind == "record":
-            self.calls.append(idx)
+            self.calls.append((probs, idx))
             return values, idx
-        want = self.calls[self.i]
+        want_p, want = self.calls[self.i]
         self.i += 1
-        self.slots += int((idx != want).sum())
-        self.tokens += int((idx.sort(dim=-1).values !=
-                            want.sort(dim=-1).values).any(dim=-1).sum())
-        self.decisions += idx.shape[0]
         if self.kind == "replay":
             return probs.gather(-1, want), want
+        parted = (idx.sort(dim=-1).values !=
+                  want.sort(dim=-1).values).any(dim=-1)
+        mine = probs.new_zeros(probs.shape, dtype=bool).scatter_(-1, idx,
+                                                                 True)
+        theirs = probs.new_zeros(probs.shape, dtype=bool).scatter_(
+            -1, want, True)
+        gap = (probs.masked_fill(~(mine & ~theirs), -1.0).amax(dim=-1) -
+               probs.masked_fill(~(theirs & ~mine), 2.0).amin(dim=-1))
+        bound = 2 * self.tol * probs.amax(dim=-1)
+        n = int(parted.sum())
+        self.layers.append({
+            "tokens": probs.shape[0], "parted": n,
+            "probs_rel_err": _rel(probs, want_p),
+            "max_gap": float(gap[parted].max()) if n else 0.0,
+            "max_bound": float(bound[parted].max()) if n else 0.0,
+            "near_ties": int((gap <= bound)[parted].sum())})
         return values, idx
 
 
@@ -582,10 +600,12 @@ def _flash_vs_plain(torch, label: str, rep, info: dict,
     within the tolerance and the first greedy token that differs printed
     with its logit gap; then warm prefills of both kinds in ``turns``.
     With ``routes`` (a MoE model, its live run recorded), the plain
-    prefill runs free first: its logits and the routing decisions that
-    differ from the flash run's are printed, and held to the tolerance
-    when none differ; the held prefill and decode then replay the flash
-    run's routing. Returns (summary fields, the plain decode step, its
+    prefill runs free first: the tokens whose experts part from the flash
+    run's are printed layer by layer; up to the first layer where they
+    part the router probabilities hold the tolerance and each parted
+    decision there is a near-tie (with none parted, the logits hold the
+    tolerance); the held prefill and decode then replay the flash run's
+    routing. Returns (summary fields, the plain decode step, its
     last token, its caches)."""
     from repro_torch import serve_lm
     from repro_torch.core.executor import NUMERICS_TOL
@@ -605,18 +625,40 @@ def _flash_vs_plain(torch, label: str, rep, info: dict,
         with routes.mode("compare"):
             free, _ = prefill["plain"](rep.model, batch)
         rel_free = _rel(rep.step_logits[0], free)
-        fields.update(free_prefill_rel_err=rel_free,
-                      routing_slots_differ=routes.slots,
-                      routing_tokens_differ=routes.tokens,
-                      routing_decisions=routes.decisions)
+        layers = routes.layers
+        parted = [lay["parted"] for lay in layers]
+        at = next((i for i, n in enumerate(parted) if n), None)
+        decisions = sum(lay["tokens"] for lay in layers)
+        fields.update(free_prefill_rel_err=rel_free, routing_parted=parted,
+                      routing_decisions=decisions)
         print(f"[main {label}] last-token logits, flash_attention prefill "
               f"vs the free-running plain prefill: rel err {rel_free:.3e}; "
-              f"the plain router picked other experts in {routes.slots} "
-              f"slots, {routes.tokens} of {routes.decisions} (token, "
-              f"layer) decisions", flush=True)
-        require(rel_free <= tol or routes.tokens > 0,
-                f"{label}: free plain prefill rel err {rel_free} > {tol} "
-                f"with the routing equal")
+              f"tokens whose experts part, layer by layer: {parted} "
+              f"({sum(parted)} of {decisions} (token, layer) decisions)",
+              flush=True)
+        if at is None:
+            require(rel_free <= tol, f"{label}: free plain prefill rel err "
+                    f"{rel_free} > {tol} with the routing equal")
+        else:
+            # up to the first parting both runs route alike: the router
+            # probabilities hold the kernel's tolerance there, and each
+            # parted decision is a near-tie that such a change can swap
+            lay = layers[at]
+            held = max(x["probs_rel_err"] for x in layers[:at + 1])
+            fields.update(first_parted_layer=at, first_parted=lay,
+                          probs_rel_err_to_first=held)
+            print(f"[main {label}] first parting at MoE layer {at}: "
+                  f"{lay['parted']} tokens, {lay['near_ties']} of them "
+                  f"near-ties (the swapped experts' probability gap, max "
+                  f"{lay['max_gap']:.3e}, within 2 x {tol} x the token's "
+                  f"largest probability, max {lay['max_bound']:.3e}); "
+                  f"router probabilities rel err up to it max {held:.3e}",
+                  flush=True)
+            require(held <= tol, f"{label}: router probabilities rel err "
+                    f"{held} > {tol} before the routing parts")
+            require(lay["near_ties"] == lay["parted"],
+                    f"{label}: MoE layer {at}: a parted decision is no "
+                    f"near-tie: {lay}")
         del free
     replay = routes.mode("replay") if routes is not None else \
         contextlib.nullcontext()
@@ -635,7 +677,7 @@ def _flash_vs_plain(torch, label: str, rep, info: dict,
         # inputs agree (every token before them equal) must agree
         # within tol
         decode = make_decode_step(cfg, plain_cfg)
-        caches = serve_lm.pad_caches(caches, rep.max_seq)
+        caches = serve_lm.pad_caches(caches, rep.max_seq, cfg.family)
         toks, step_logits = [logits.argmax(dim=-1)[:, None]], [logits]
         for _ in range(rep.gen_len):
             logits, caches = decode(rep.model, {"tokens": toks[-1]}, caches)
@@ -674,60 +716,37 @@ def _flash_vs_plain(torch, label: str, rep, info: dict,
     return fields, decode, toks[-1], caches
 
 
-def phase_path_d(torch, info: dict) -> tuple:
-    """glm4-9b served at its published widths: the prefill's attention on
-    flash_attention (one launch a layer), decode steps on the plain
-    product. Then the same prefill with ``use_flash=False``, all plain
-    PyTorch, on the same weights and prompts: last-token logits within
-    the kernel's tolerance, and the greedy decode from it; warm prefills
-    in turns plain, flash, flash, plain; a profile of decode steps."""
-    from repro_torch import serve_lm
-    rep, launches = drive(torch, "D", lambda: serve_lm.main(
-        _live_args("glm4-9b")))
-    cfg = rep.model.cfg
-    none = {"flash_attention": 0, "ssd_scan": 0}
-    require(rep.launches["prefill"] == dict(none, flash_attention=
-                                            cfg.n_layers),
-            f"D: prefill launches {rep.launches['prefill']}, want "
-            f"{cfg.n_layers} flash_attention")
-    require(all(d == none for d in rep.launches["decode"]),
-            f"D: decode launches {rep.launches['decode']}")
-    require(launches == {"matmul_int8": 0, "flash_attention": cfg.n_layers,
-                         "ssd_scan": 0}, f"D: launches {launches}")
-    summary = _live_summary("D", rep, info)
-    fields, decode, tok, caches = _flash_vs_plain(
-        torch, "D", rep, info, ("plain", "flash", "flash", "plain"))
-    profiled = _profile_decode(torch, "D", info, decode, rep.model, tok,
-                               serve_lm.pad_caches(caches, rep.max_seq + 8))
-    summary.update(fields, decode_profile=profiled)
-    del rep, caches, decode, tok
-    _free(torch)
-    return summary, launches
+#: Paths D and F-I: every family but ssm (path E) served live at
+#: published widths: (label, arch, flash_attention launches a prefill,
+#: the warm prefills' turns). The dense model launches once a layer, as
+#: do the MoE and the vlm; the hybrid once a group (its shared attention
+#: block), not once a layer; the encoder-decoder once a decoder layer
+#: (its encoder and cross-attention run the plain product, as the
+#: reference's).
+LIVE_FAMILIES = (("D", "glm4-9b", 40, ("plain", "flash", "flash", "plain")),
+                 ("F", "qwen2-moe-a2.7b", 24, ("plain", "flash")),
+                 ("G", "zamba2-1.2b", 6, ("plain", "flash")),
+                 ("H", "pixtral-12b", 40, ("plain", "flash")),
+                 ("I", "seamless-m4t-large-v2", 24, ("plain", "flash")))
 
 
-#: Paths F-I: the other families served live at published widths, as D:
-#: (label, arch, flash_attention launches a prefill). The hybrid launches
-#: once a group (its shared attention block), not once a layer; the
-#: encoder-decoder once a decoder layer (its encoder and cross-attention
-#: run the plain product, as the reference's).
-LIVE_FAMILIES = (("F", "qwen2-moe-a2.7b", 24), ("G", "zamba2-1.2b", 6),
-                 ("H", "pixtral-12b", 40), ("I", "seamless-m4t-large-v2",
-                                            24))
-
-
-def phase_path_family(torch, info: dict, label: str, arch: str,
-                      want: int) -> tuple:
+def phase_path_family(torch, info: dict, label: str, arch: str, want: int,
+                      turns: tuple[str, ...]) -> tuple:
     """``arch`` served live at its published widths (float32, 4 prompts
     of 512 tokens behind the vlm's 1024 stub patch embeddings, 16 greedy
-    tokens): exactly ``want`` flash_attention launches in the prefill and
-    none in a decode step; then the all-plain prefill on the same weights
-    and inputs (for a MoE model, free-running and along the live run's
-    recorded routing, `RouteLog`), one warm prefill of each kind; a
-    profile of decode steps as in D. The model is freed before the next
-    path."""
+    tokens): the prefill's attention on flash_attention, exactly ``want``
+    launches, and none in a decode step (the plain product). Then the
+    all-plain prefill (``use_flash=False``) on the same weights and
+    inputs: last-token logits within the kernel's tolerance (for a MoE
+    model along the live run's recorded routing, and free-running with
+    its first parting held to near-ties, `RouteLog`), the greedy decode
+    from it; warm prefills in ``turns``; a profile of decode steps. The
+    model is freed before the next path."""
     from repro_torch import serve_lm
     from repro_torch.configs import get_config
-    routes = RouteLog() if get_config(arch).family == "moe" else None
+    from repro_torch.core.executor import NUMERICS_TOL
+    routes = RouteLog(NUMERICS_TOL["flash_attention"]) \
+        if get_config(arch).family == "moe" else None
     with routes.mode("record") if routes else contextlib.nullcontext():
         rep, launches = drive(torch, label, lambda: serve_lm.main(
             _live_args(arch)))
@@ -741,9 +760,10 @@ def phase_path_family(torch, info: dict, label: str, arch: str,
                          "ssd_scan": 0}, f"{label}: launches {launches}")
     summary = _live_summary(label, rep, info)
     fields, decode, tok, caches = _flash_vs_plain(
-        torch, label, rep, info, ("plain", "flash"), routes)
+        torch, label, rep, info, turns, routes)
     profiled = _profile_decode(torch, label, info, decode, rep.model, tok,
-                               serve_lm.pad_caches(caches, rep.max_seq + 8))
+                               serve_lm.pad_caches(caches, rep.max_seq + 8,
+                                                   rep.model.cfg.family))
     summary.update(fields, family=rep.model.cfg.family,
                    n_params=sum(p.numel() for p in rep.model.parameters()),
                    prefill_positions=rep.prefix + rep.prompt_len,
@@ -1007,7 +1027,6 @@ def flash_rows(torch, plan, out_c, timer) -> list[dict]:
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    glm = get_config("glm4-9b")
     # (path, count in that path's plan, op ms there, name, (b, lq, lk, h,
     # hd, causal, dtype, block_q, block_k)); the executor runs float32 at
     # the bridge's blocks, so only that row of a plan op counts for its
@@ -1041,31 +1060,25 @@ def flash_rows(torch, plan, out_c, timer) -> list[dict]:
                               shape))
     for dt in ("float32", "bfloat16"):
         el = 4 if dt == "float32" else 2
-        # path D's prefill attention (glm4-9b: 4 prompts of 512, 32 heads
-        # of 128, causal, one launch a layer) at the bridge's blocks, as
-        # the model runs it; float32 is the dtype the path serves in
-        h, hd = glm.n_heads, glm.resolved_head_dim
+        # paths D and F-I's prefill attention (4 prompts; the vlm's 1024
+        # stub patch positions in front of the prompt; causal, one launch
+        # a layer, the hybrid's one a group) at the bridge's blocks, as
+        # the models run it: float32, the dtype they serve in; glm4-9b's
+        # in bfloat16 too
         main = dt == "float32"
-        cases.append(("D" if main else None, glm.n_layers if main else 0,
-                      None, "glm4-9b live prefill attention",
-                      (LIVE_BATCH, LIVE_PROMPT, LIVE_PROMPT, h, hd, True,
-                       dt) + select_flash_blocks(
-                          LIVE_PROMPT, LIVE_PROMPT, hd, bytes_el=el,
-                          batch_heads=LIVE_BATCH * h, n_sms=sms)))
-        # paths F-I's prefill attention (4 prompts; the vlm's 1024 stub
-        # patch positions in front of the prompt), float32 as they serve
-        if main:
-            for label, arch, want in LIVE_FAMILIES:
-                fcfg = get_config(arch)
-                fl = LIVE_PROMPT + (fcfg.frontend_seq
-                                    if fcfg.family == "vlm" else 0)
-                fh, fhd = fcfg.n_heads, fcfg.resolved_head_dim
-                cases.append((label, want, None,
-                              f"{arch} live prefill attention",
-                              (LIVE_BATCH, fl, fl, fh, fhd, True, dt) +
-                              select_flash_blocks(
-                                  fl, fl, fhd, bytes_el=el,
-                                  batch_heads=LIVE_BATCH * fh, n_sms=sms)))
+        for label, arch, want, _ in LIVE_FAMILIES:
+            if not main and label != "D":
+                continue
+            fcfg = get_config(arch)
+            fl = LIVE_PROMPT + (fcfg.frontend_seq
+                                if fcfg.family == "vlm" else 0)
+            fh, fhd = fcfg.n_heads, fcfg.resolved_head_dim
+            cases.append((label if main else None, want if main else 0,
+                          None, f"{arch} live prefill attention",
+                          (LIVE_BATCH, fl, fl, fh, fhd, True, dt) +
+                          select_flash_blocks(
+                              fl, fl, fhd, bytes_el=el,
+                              batch_heads=LIVE_BATCH * fh, n_sms=sms)))
         # path C's minicpm-2b exec_decode step (16 sequences against a
         # 256-entry cache, 36 heads of 64), at every block_k
         cases += [(None, 0, None, "minicpm-2b exec_decode",
@@ -1326,14 +1339,12 @@ def main() -> int:
     rep_a, launch_a = phase_path_a(torch)
     rep_b, launch_b = phase_path_b(torch)
     out_c, launch_c = phase_path_c(torch)
-    live_d, launch_d = phase_path_d(torch, info)
     live_e, launch_e = phase_path_e(torch, info)
-    launches = {"A": launch_a, "B": launch_b, "C": launch_c, "D": launch_d,
-                "E": launch_e}
-    lives = {"D": live_d, "E": live_e}
-    for label, arch, want in LIVE_FAMILIES:
-        lives[label], launches[label] = phase_path_family(torch, info, label,
-                                                          arch, want)
+    launches = {"A": launch_a, "B": launch_b, "C": launch_c, "E": launch_e}
+    lives = {"E": live_e}
+    for label, arch, want, turns in LIVE_FAMILIES:
+        lives[label], launches[label] = phase_path_family(
+            torch, info, label, arch, want, turns)
     traffic = phase_traffic(info)
     plans = [("A", rep_a.plan), ("B", rep_b.plan)]
     timer = Timer(torch)

@@ -183,35 +183,39 @@ def _since(before: dict[str, int]) -> dict[str, int]:
     return {k: n - before[k] for k, n in _launch_counts().items()}
 
 
-def _self_kv(caches):
-    """The self-attention KV caches of any family's caches, or None (ssm):
-    a KVCache, the hybrid's (states, kv) or the encoder-decoder's (kv,
-    cross K/V, memory)."""
-    from repro_torch.models.attention import KVCache
-    from repro_torch.models.ssm import SSMState
-    if isinstance(caches, KVCache):
+def _self_kv(caches, family: str):
+    """The self-attention KV caches of a ``family``'s caches, or None
+    (ssm): the KVCache itself (dense, moe, vlm), the hybrid's (states,
+    kv) or the encoder-decoder's (kv, cross K/V, memory)."""
+    if family in ("dense", "moe", "vlm"):
         return caches
-    if isinstance(caches, SSMState):
+    if family == "ssm":
         return None
-    return caches[1] if len(caches) == 2 else caches[0]
+    if family == "hybrid":
+        return caches[1]
+    if family == "encdec":
+        return caches[0]
+    raise ValueError(f"no cache layout for family {family!r}")
 
 
-def pad_caches(caches, max_seq: int):
-    """Self-attention KV caches grown along their sequence axis to
-    ``max_seq`` positions of zeros, so that decode can append (the demo's
-    pad). Only those grow: SSM states, the encoder-decoder's cross K/V
-    and memory pass through."""
+def pad_caches(caches, max_seq: int, family: str):
+    """A ``family``'s self-attention KV caches grown along their sequence
+    axis to ``max_seq`` positions of zeros, so that decode can append (the
+    demo's pad). Only those grow: SSM states, the encoder-decoder's cross
+    K/V and memory pass through."""
     import torch.nn.functional as F
-    kv = _self_kv(caches)
+    kv = _self_kv(caches, family)
     if kv is None:
         return caches
     grow = max_seq - kv.k.shape[2]
     pad = lambda t: None if t is None else F.pad(t, (0, 0, 0, 0, 0, grow))
     grown = kv._replace(k=pad(kv.k), v=pad(kv.v), k_scale=pad(kv.k_scale),
                         v_scale=pad(kv.v_scale))
-    if kv is caches:
-        return grown
-    return (caches[0], grown) if len(caches) == 2 else (grown,) + caches[1:]
+    if family == "hybrid":
+        return caches[0], grown
+    if family == "encdec":
+        return (grown,) + tuple(caches[1:])
+    return grown
 
 
 def _check_live(cfg, caches, tokens, batch: int, gen_len: int,
@@ -227,7 +231,7 @@ def _check_live(cfg, caches, tokens, batch: int, gen_len: int,
             bool((tokens < 0).any()):
         raise RuntimeError(f"greedy tokens {tuple(tokens.shape)}")
     held = []
-    kv = _self_kv(caches)
+    kv = _self_kv(caches, cfg.family)
     if kv is not None:
         # the final cache length is exactly every position prefilled or
         # generated, and the last position was written (a dropped
@@ -327,7 +331,7 @@ def live(args) -> LiveReport:
     sync()
     prefill_ms = (time.monotonic() - t0) * 1e3
     launches = {"prefill": _since(before), "decode": []}
-    caches = pad_caches(caches, max_seq)
+    caches = pad_caches(caches, max_seq, cfg.family)
     step_logits = [logits.to(torch.float32)]
     toks = [torch.argmax(logits, dim=-1)[:, None]]
     decode_ms = []

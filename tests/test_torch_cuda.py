@@ -723,7 +723,7 @@ def test_family_prefill_flash_vs_plain_and_greedy(cuda, arch, layers, want):
         logits, caches = make_prefill_step(cfg, step_cfg)(model, batch)
         assert fa_kernel.launches - before == (want if use_flash else 0)
         last[use_flash] = logits
-        caches = serve_lm.pad_caches(caches, max_seq)
+        caches = serve_lm.pad_caches(caches, max_seq, cfg.family)
         decode = make_decode_step(cfg, step_cfg)
         toks = [logits.argmax(-1)[:, None]]
         before = fa_kernel.launches

@@ -251,7 +251,7 @@ def test_forward_prefill_decode_match_jax(pair):
     close(out.aux_loss, raux)
     _close_leaves(out.caches, rcaches)
     max_seq = 16 + (cfg.frontend_seq if cfg.family == "vlm" else 0)
-    caches = serve_lm.pad_caches(out.caches, max_seq)
+    caches = serve_lm.pad_caches(out.caches, max_seq, cfg.family)
     nxt = toks[:, -1:]
     out = transformer.forward(model, cfg, T(nxt), mode="decode",
                               caches=caches, compute_dtype=torch.float32)
@@ -281,7 +281,7 @@ def test_greedy_decode_matches_jax_loop(pair):
     if fe is not None:
         batch["frontend"], jbatch["frontend"] = T(fe), J(fe)
     logits, caches = prefill(model, batch)
-    caches = serve_lm.pad_caches(caches, max_seq)
+    caches = serve_lm.pad_caches(caches, max_seq, cfg.family)
     toks = [logits.argmax(-1)[:, None]]
     for _ in range(gen):
         logits, caches = decode(model, {"tokens": toks[-1]}, caches)
@@ -297,7 +297,7 @@ def test_greedy_decode_matches_jax_loop(pair):
         rtoks.append(jnp.argmax(rlogits, -1).astype(jnp.int32)[:, None])
     assert torch.cat(toks, 1).tolist() == \
         np.asarray(jnp.concatenate(rtoks, 1)).tolist()
-    kv = serve_lm._self_kv(caches)
+    kv = serve_lm._self_kv(caches, cfg.family)
     rkv = rcaches[1] if cfg.family == "hybrid" else \
         rcaches[0] if cfg.family == "encdec" else rcaches
     assert kv.length.tolist() == np.asarray(rkv.length).tolist()
@@ -408,16 +408,27 @@ def test_pad_caches_grows_only_self_kv(family):
             "moe": "qwen2-moe-a2.7b"}[family]
     cfg, _ = configs(arch)
     caches = steps.init_caches(cfg, 2, 6, torch.float32)
-    padded = serve_lm.pad_caches(caches, 11)
-    kv = serve_lm._self_kv(padded)
+    padded = serve_lm.pad_caches(caches, 11, cfg.family)
+    kv = serve_lm._self_kv(padded, cfg.family)
     assert kv.k.shape[2] == kv.v.shape[2] == 11
     assert kv.k.shape[0] == (2 if family == "hybrid" else cfg.n_layers)
     if family != "moe":
         assert type(padded) is tuple and len(padded) == len(caches)
-        rest = [t for i, t in enumerate(padded)
-                if t is not serve_lm._self_kv(padded)]
-        want = [t for t in caches if t is not serve_lm._self_kv(caches)]
+        rest = [t for t in padded if t is not kv]
+        old = serve_lm._self_kv(caches, cfg.family)
+        want = [t for t in caches if t is not old]
         assert all(a is b for a, b in zip(_leaves(rest), _leaves(want)))
+
+
+def test_cache_layout_of_an_unknown_family_raises():
+    """The self-attention KV is found by the family, never guessed from
+    the caches' shape: a family without a known layout raises."""
+    cfg, _ = configs("zamba2-1.2b@5")
+    caches = steps.init_caches(cfg, 2, 6, torch.float32)
+    with pytest.raises(ValueError, match="no cache layout"):
+        serve_lm.pad_caches(caches, 11, "train")
+    with pytest.raises(ValueError, match="no cache layout"):
+        serve_lm._self_kv(caches, "retrieval")
 
 
 def test_encdec_prefill_needs_frontend():
@@ -455,6 +466,6 @@ def test_serve_lm_live_on_cpu(arch):
     assert rep.prefix == (cfg.frontend_seq if cfg.family == "vlm" else 0)
     assert rep.max_seq == rep.prefix + 25
     assert (rep.frontend is None) == (cfg.family not in ("vlm", "encdec"))
-    kv = serve_lm._self_kv(rep.caches)
+    kv = serve_lm._self_kv(rep.caches, cfg.family)
     assert int(kv.length.min()) == rep.max_seq
     assert len(rep.decode_ms) == 5 and rep.peak_bytes is None

@@ -409,7 +409,7 @@ def test_forward_prefill_decode_match_jax(pair):
     close(out.logits, rlogits)
     for got, want in zip(out.caches, jax.tree.leaves(rcaches)):
         close(got, want)
-    caches = serve_lm.pad_caches(out.caches, 16)
+    caches = serve_lm.pad_caches(out.caches, 16, cfg.family)
     nxt = toks[:, -1:]
     out = transformer.forward(model, cfg, T(nxt), mode="decode",
                               caches=caches, compute_dtype=torch.float32)
@@ -432,7 +432,7 @@ def test_greedy_decode_matches_jax_loop(pair):
     prefill = steps.make_prefill_step(cfg, step_cfg)
     decode = steps.make_decode_step(cfg, step_cfg)
     logits, caches = prefill(model, {"tokens": T(prompt)})
-    caches = serve_lm.pad_caches(caches, max_seq)
+    caches = serve_lm.pad_caches(caches, max_seq, cfg.family)
     toks = [logits.argmax(-1)[:, None]]
     for _ in range(gen):
         logits, caches = decode(model, {"tokens": toks[-1]}, caches)
