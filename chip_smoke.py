@@ -76,6 +76,19 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      print the card's name and power limit. Then ``[traffic]``:
      ``serve_lm --traffic``, the request-level simulator (host only),
      continuous batching no slower than serial;
+     J. ``repro_torch.train.steps.make_train_step`` for minicpm-2b at its
+        published widths (random float32 weights from the seed, 10.9 GB;
+        bf16 compute, remat, the config's WSD schedule), once every
+        served model is freed: 6 steps on one batch of 4 x 1,024 tokens,
+        every loss finite, the first beside ln V, the last TRAIN_MARGIN
+        below the first, none of the three kernels launched (no kernel
+        has a backward; the train step runs the plain products); step
+        ms, tokens/s, peak bytes and a profiled step's busy share. Then
+        ``[train holds]`` at published widths and 2 layers, float32:
+        one step on the card against the same step on the host (loss,
+        grad norm, weights, both moments), 2 microbatches against 1, and
+        the int8 compression of the card's gradients (residuals within
+        half a scale, bit-equal to the host function's);
   4. kernels vs plain — each kernel against its plain PyTorch version on
      the same inputs on the card: matmul_int8 integer-exact with unit
      scales at K <= 1024 and at K = 1 and M = 1 for every tile, bit-equal
@@ -105,7 +118,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      C every op of its plans;
   5. the ``kernels`` line: matmul_int8 and flash_attention count-weighted
      over path A's plan (one decode step), ssd_scan over path B's (one
-     prompt pass); launches are summed over the main paths A-I;
+     prompt pass); launches are summed over the main paths A-J;
   6. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the repository beside it, it exits
@@ -489,23 +502,19 @@ def _live_summary(label: str, rep, info: dict) -> dict:
     return out
 
 
-def _profile_decode(torch, label: str, info: dict, decode, model, tok,
-                    caches, steps: int = 4) -> dict:
-    """Where a decode step's time goes: ``steps`` greedy steps under
-    ``torch.profiler``, the CUDA kernels' summed device time per step
-    against the step's wall time (profiled, so both include the
-    profiler's own cost), the device's idle share, the kernels launched a
-    step and the four costliest."""
+def _device_profile(torch, step, steps: int) -> dict:
+    """``step()`` run ``steps`` times under ``torch.profiler``: the CUDA
+    kernels' summed device time per step against the step's wall time
+    (profiled, so both include the profiler's own cost), the device's
+    idle share, the kernels launched a step and the four costliest."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    decode(model, {"tokens": tok}, caches)          # warm, same shapes
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         for _ in range(steps):
-            logits, caches = decode(model, {"tokens": tok}, caches)
-            tok = logits.argmax(dim=-1)[:, None]
+            step()
         torch.cuda.synchronize()
         wall = (time.monotonic() - t0) * 1e3 / steps
     kernels = [e for e in prof.key_averages()
@@ -513,10 +522,25 @@ def _profile_decode(torch, label: str, info: dict, decode, model, tok,
     dev = lambda e: e.self_device_time_total / 1e3 / steps     # ms a step
     busy = sum(dev(e) for e in kernels)
     top = sorted(kernels, key=dev, reverse=True)[:4]
-    out = {"wall_ms": wall, "device_ms": busy,
-           "idle_share": 1 - busy / wall,
-           "kernels_per_step": sum(e.count for e in kernels) / steps,
-           "top": [(e.key[:60], dev(e)) for e in top]}
+    return {"wall_ms": wall, "device_ms": busy,
+            "idle_share": 1 - busy / wall,
+            "kernels_per_step": sum(e.count for e in kernels) / steps,
+            "top": [(e.key[:60], dev(e)) for e in top]}
+
+
+def _profile_decode(torch, label: str, info: dict, decode, model, tok,
+                    caches, steps: int = 4) -> dict:
+    """Where a decode step's time goes: ``steps`` greedy steps profiled
+    (`_device_profile`) after one warm step of the same shapes."""
+    decode(model, {"tokens": tok}, caches)          # warm, same shapes
+    greedy = {"tok": tok, "caches": caches}
+
+    def step():
+        logits, greedy["caches"] = decode(model, {"tokens": greedy["tok"]},
+                                          greedy["caches"])
+        greedy["tok"] = logits.argmax(dim=-1)[:, None]
+    out = _device_profile(torch, step, steps)
+    wall, busy = out["wall_ms"], out["device_ms"]
     print(f"[main {label}] decode step profiled ({steps} steps): wall "
           f"{wall:.4f} ms, device busy {busy:.4f} ms, idle share "
           f"{out['idle_share']:.4f}, {out['kernels_per_step']:.0f} kernels "
@@ -791,6 +815,267 @@ def phase_traffic(info: dict) -> dict:
           f"{s['n_merged_iterations']} merged iterations; host "
           f"{out['wall_s']:.2f} s; card {info['nvidia_smi']}", flush=True)
     return out
+
+
+#: Path J: minicpm-2b trained at its published widths (40 layers, d 2304,
+#: 36 heads, d_ff 5,760, vocab 122,753 tied: 2.72 B parameters, 10.9 GB
+#: in float32, drawn on the card from the seed), `StepConfig`'s defaults
+#: (bf16 compute, remat on), the config's WSD schedule with a peak lr of
+#: TRAIN_LR after TRAIN_WARMUP steps over TRAIN_STEPS (the last step in
+#: the decay, at a tenth of the peak); one fixed batch of 4 x 1,024
+#: tokens with next-token labels, TRAIN_STEPS times; the last loss must
+#: lie TRAIN_MARGIN nats below the first.
+TRAIN_ARCH, TRAIN_SEED = "minicpm-2b", 0
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6
+TRAIN_LR, TRAIN_WARMUP, TRAIN_MARGIN = 3e-4, 2, 1.0
+#: The holds beside J: published widths at 2 layers (two copies of the
+#: state fit, and the host takes its step in seconds), float32 compute,
+#: 2 x 128 tokens. Loss and grad norm within TRAIN_TOL relative, m and v
+#: within TRAIN_TOL of their leaf's largest entry; a weight within
+#: lr * 1e-3 (plus 2 ulp) where its gradient is above TRAIN_G_FLOOR, else
+#: within 2 * lr (a first Adam step moves it by about lr * sign(g)).
+TRAIN_HOLD_LAYERS, TRAIN_HOLD_BATCH, TRAIN_HOLD_SEQ = 2, 2, 128
+TRAIN_TOL, TRAIN_G_FLOOR = 1e-4, 1e-6
+
+
+def _train_batch(torch, cfg, batch: int, seq: int, gen, device) -> dict:
+    """Tokens from ``gen`` and their next-token labels (the last position
+    -1, masked)."""
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                         device=device)
+    return {"tokens": toks, "labels": torch.cat(
+        [toks[:, 1:], torch.full((batch, 1), -1, device=device)], dim=1)}
+
+
+def phase_path_j(torch, info: dict) -> tuple:
+    """minicpm-2b trained TRAIN_STEPS steps at its published widths on the
+    card: every loss finite, the first beside ln V, the last
+    TRAIN_MARGIN below the first, and none of the three kernels launched
+    (the train step runs the plain products: no kernel has a backward).
+    Prints step ms (the median of steps 2 on), tokens/s, peak bytes, and
+    a profiled step's device busy share and kernels. The state is freed
+    before the holds."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.minicpm_2b import TRAIN_SCHEDULE
+    from repro_torch.train import optimizer, steps
+    cfg = get_config(TRAIN_ARCH)
+    step_cfg = steps.StepConfig()
+    require(step_cfg.remat and step_cfg.compute_dtype == torch.bfloat16 and
+            step_cfg.microbatches == 1 and not step_cfg.use_flash,
+            f"J: StepConfig defaults {step_cfg}")
+    opt_cfg = optimizer.OptimizerConfig(
+        lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS,
+        schedule=TRAIN_SCHEDULE)
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    state = steps.init_train_state(TRAIN_SEED, cfg, step_cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = sum(p.numel() for p in state.params.parameters())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(TRAIN_SEED + 1)
+    batch = _train_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, gen, "cuda")
+    step = steps.make_train_step(cfg, opt_cfg, step_cfg)
+    held = {"state": state}
+    del state
+
+    def run():
+        rows = []
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            held["state"], met = step(held["state"], batch)
+            met = {k: float(v) for k, v in met.items()}
+            torch.cuda.synchronize()
+            rows.append(dict(met, ms=(time.monotonic() - t) * 1e3))
+        return rows
+    rows, launches = drive(torch, "J", run)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in rows]
+    step_ms = statistics.median(r["ms"] for r in rows[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    ln_v = math.log(cfg.vocab_size)
+    require(all(math.isfinite(v) for r in rows for v in r.values()),
+            f"J: a non-finite metric: {rows}")
+    require(launches == dict.fromkeys(KERNELS, 0), f"J: launches {launches}")
+    require(losses[-1] <= losses[0] - TRAIN_MARGIN,
+            f"J: loss {losses[0]} -> {losses[-1]}, not {TRAIN_MARGIN} lower")
+    print(f"[main J] {TRAIN_ARCH} trained at published widths ({n_params:,} "
+          f"parameters, drawn in {init_s:.2f} s), {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens, bf16 compute, remat, {TRAIN_SCHEDULE} lr "
+          f"{[r['lr'] for r in rows]}: losses {losses} (first beside ln V = "
+          f"{ln_v:.4f}; the last {losses[0] - losses[-1]:.4f} below the "
+          f"first, margin {TRAIN_MARGIN}), grad norms "
+          f"{[round(r['grad_norm'], 4) for r in rows]}", flush=True)
+    print(f"[main J] step ms {[round(r['ms'], 3) for r in rows]}: median of "
+          f"steps 2-{TRAIN_STEPS} {step_ms:.4f} ms, {tokens / step_ms * 1e3:.1f}"
+          f" tokens/s; peak {peak:,} bytes allocated ({before:,} held "
+          f"before J); kernel launches a step {launches} over "
+          f"{TRAIN_STEPS} steps; card {info['nvidia_smi']}", flush=True)
+
+    def one():
+        held["state"], _ = step(held["state"], batch)
+    counters = _counters()
+    n0 = {k: m.launches for k, m in counters.items()}
+    profiled = _device_profile(torch, one, 1)
+    require(all(m.launches == n0[k] for k, m in counters.items()),
+            "J: the profiled step launched a kernel")
+    print(f"[main J] train step profiled: wall {profiled['wall_ms']:.4f} ms, "
+          f"device busy {profiled['device_ms']:.4f} ms, busy share "
+          f"{1 - profiled['idle_share']:.4f}, "
+          f"{profiled['kernels_per_step']:.0f} kernels a step; costliest "
+          f"{profiled['top']}; card {info['nvidia_smi']}", flush=True)
+    summary = {"n_params": n_params, "init_s": init_s, "steps": rows,
+               "step_ms_median": step_ms,
+               "tokens_per_s": tokens / step_ms * 1e3, "peak_bytes": peak,
+               "held_before_bytes": before, "ln_v": ln_v,
+               "profile": profiled}
+    del held, batch, step
+    _free(torch)
+    summary["holds"] = _train_holds(torch, info, cfg)
+    return summary, launches
+
+
+def _state_errors(torch, host, card, lr: float, b1: float) -> dict:
+    """The card's updated state against the host's after one step from
+    the same weights: the largest error of m and v over their leaf's
+    largest entry, and the largest excess of a weight's error over what
+    TRAIN_G_FLOOR allows it (<= 0 holds), with the count of weights
+    under the floor, how many of them lie beyond the tight allowance and
+    the largest error among them over lr."""
+    out = {"m": 0.0, "v": 0.0, "param_excess": -math.inf, "loose": 0,
+           "loose_beyond_tight": 0, "loose_max_err_over_lr": 0.0}
+    card_p = dict(card.params.named_parameters())
+    for name, p in host.params.named_parameters():
+        for key in ("m", "v"):
+            ours = getattr(card.opt, key)[name].cpu()
+            theirs = getattr(host.opt, key)[name]
+            err = float((ours - theirs).abs().max() /
+                        theirs.abs().max().clamp_min(1e-30))
+            out[key] = max(out[key], err)
+        g = host.opt.m[name] / (1 - b1)
+        loose = g.abs() <= TRAIN_G_FLOOR
+        tight = lr * 1e-3 + 2 * torch.finfo(torch.float32).eps * p.abs()
+        allowed = torch.where(loose, torch.full_like(p, 2 * lr * (1 + 1e-3)),
+                              tight)
+        err = (card_p[name].cpu() - p).abs()
+        out["param_excess"] = max(out["param_excess"],
+                                  float((err - allowed).max()))
+        out["loose"] += int(loose.sum())
+        out["loose_beyond_tight"] += int((loose & (err > tight)).sum())
+        if loose.any():
+            out["loose_max_err_over_lr"] = max(
+                out["loose_max_err_over_lr"], float(err[loose].max()) / lr)
+    return out
+
+
+def _train_holds(torch, info: dict, cfg) -> dict:
+    """minicpm-2b at published widths and TRAIN_HOLD_LAYERS layers, float32
+    compute: one train step on the card against the same step on the
+    host from the same weights and batch; 2 microbatches against 1 on
+    the card (loss and grads); and the int8 compression on the card's
+    gradients: |residual| <= scale / 2 (plus the float32 rounding of the
+    division and the product at |code| <= 127, 2 * 127 * 2**-24 <
+    2**-16 of the scale) and the decompressed gradients and residuals
+    equal, bit for bit, to the host function's on the same input. No
+    kernel launches in any of them."""
+    import copy
+    import dataclasses
+
+    from repro_torch.models.convert import reference_leaf
+    from repro_torch.models.transformer import init_model
+    from repro_torch.runtime import compression
+    from repro_torch.train import optimizer, steps
+    hcfg = dataclasses.replace(cfg, n_layers=TRAIN_HOLD_LAYERS)
+    gen = torch.Generator().manual_seed(TRAIN_SEED + 2)
+    host = init_model(hcfg, gen, torch.float32)
+    card = copy.deepcopy(host).to("cuda")
+    hb = _train_batch(torch, hcfg, TRAIN_HOLD_BATCH, TRAIN_HOLD_SEQ, gen,
+                      "cpu")
+    cb = {k: v.to("cuda") for k, v in hb.items()}
+    f32 = steps.StepConfig(compute_dtype=torch.float32)
+    opt_cfg = optimizer.OptimizerConfig(lr=TRAIN_LR,
+                                        warmup_steps=TRAIN_WARMUP)
+    counters = _counters()
+    n0 = {k: m.launches for k, m in counters.items()}
+    out, ms = {}, {}
+    for side, model, batch in (("host", host, hb), ("card", card, cb)):
+        state = steps.TrainState(model, optimizer.init_adamw(
+            dict(model.named_parameters())), None, 0)
+        t = time.monotonic()
+        out[side] = steps.make_train_step(hcfg, opt_cfg, f32)(state, batch)
+        float(out[side][1]["loss"])
+        ms[side] = (time.monotonic() - t) * 1e3
+    (hs, hm), (cs, cm) = out["host"], out["card"]
+    del state
+    rel = {k: abs(float(cm[k]) - float(hm[k])) / abs(float(hm[k]))
+           for k in ("loss", "grad_norm")}
+    errs = _state_errors(torch, hs, cs, float(hm["lr"]), opt_cfg.betas[0])
+    print(f"[train holds] {TRAIN_ARCH} at {TRAIN_HOLD_LAYERS} layers, "
+          f"{TRAIN_HOLD_BATCH} x {TRAIN_HOLD_SEQ} tokens, float32: card vs "
+          f"host step: loss {float(cm['loss']):.6f} / {float(hm['loss']):.6f}"
+          f" (rel {rel['loss']:.3e}), grad norm rel {rel['grad_norm']:.3e}, "
+          f"m {errs['m']:.3e}, v {errs['v']:.3e} of their leaf's largest "
+          f"(tolerance {TRAIN_TOL}); weights: largest excess over the "
+          f"allowance {errs['param_excess']:.3e} (<= 0 holds); "
+          f"{errs['loose']:,} under the gradient floor, "
+          f"{errs['loose_beyond_tight']:,} of them beyond the tight "
+          f"allowance, their largest error "
+          f"{errs['loose_max_err_over_lr']:.3e} lr; step ms card "
+          f"{ms['card']:.1f}, host {ms['host']:.1f}", flush=True)
+    require(max(rel.values()) <= TRAIN_TOL and errs["m"] <= TRAIN_TOL and
+            errs["v"] <= TRAIN_TOL and errs["param_excess"] <= 0,
+            f"train holds: card vs host {rel} {errs}")
+    del host, hs, out, hb
+
+    grads = {mb: steps.loss_and_grads(card, hcfg, dataclasses.replace(
+        f32, microbatches=mb), cb) for mb in (1, 2)}
+    mb_loss = abs(float(grads[2][1]) - float(grads[1][1])) / \
+        abs(float(grads[1][1]))
+    mb_grad = max(float((grads[2][0][n] - g).abs().max() /
+                        g.abs().max().clamp_min(1e-30))
+                  for n, g in grads[1][0].items())
+    print(f"[train holds] microbatches 2 vs 1 on the card: loss rel "
+          f"{mb_loss:.3e}, grads {mb_grad:.3e} of their leaf's largest "
+          f"(tolerance {TRAIN_TOL})", flush=True)
+    require(mb_loss <= TRAIN_TOL and mb_grad <= TRAIN_TOL,
+            f"train holds: microbatches {mb_loss} {mb_grad}")
+
+    g = grads[1][0]
+    del grads
+    res0 = compression.init_residuals(g)
+    deq, res = compression.compress_grads_with_feedback(
+        g, res0, leaf_of=reference_leaf)
+    worst = 0.0
+    leaves: dict[str, list[str]] = {}
+    for n in g:
+        leaves.setdefault(reference_leaf(n), []).append(n)
+    for names in leaves.values():
+        scale = max(float(g[n].abs().max()) for n in names) / 127.0
+        scale = max(scale, 1e-8 / 127.0)
+        worst = max(worst, max(float(res[n].abs().max()) for n in names) /
+                    scale)
+    hdeq, hres = compression.compress_grads_with_feedback(
+        {n: t.cpu() for n, t in g.items()},
+        {n: t.cpu() for n, t in res0.items()}, leaf_of=reference_leaf)
+    equal = all(torch.equal(deq[n].cpu(), hdeq[n]) and
+                torch.equal(res[n].cpu(), hres[n]) for n in g)
+    print(f"[train holds] int8 compression on the card's gradients "
+          f"({len(leaves)} leaves): largest |residual| "
+          f"{worst:.6f} of its leaf's scale (<= 0.5 + 2**-16), decompressed "
+          f"grads and residuals bit-equal to the host's: {equal}; card "
+          f"{info['nvidia_smi']}", flush=True)
+    require(worst <= 0.5 + 2 ** -16 and equal,
+            f"train holds: compression {worst} {equal}")
+    require(all(m.launches == n0[k] for k, m in counters.items()),
+            "train holds: a kernel launched")
+    summary = {"card_vs_host": dict(rel, **errs), "step_ms": ms,
+               "microbatches": {"loss": mb_loss, "grads": mb_grad},
+               "compression": {"residual_of_scale": worst, "equal": equal}}
+    del card, cs, g, deq, res, res0, cb
+    _free(torch)
+    return summary
 
 
 def phase_path_e(torch, info: dict) -> tuple:
@@ -1346,6 +1631,7 @@ def main() -> int:
         lives[label], launches[label] = phase_path_family(
             torch, info, label, arch, want, turns)
     traffic = phase_traffic(info)
+    lives["J"], launches["J"] = phase_path_j(torch, info)
     plans = [("A", rep_a.plan), ("B", rep_b.plan)]
     timer = Timer(torch)
     mm = matmul_rows(torch, plans, timer)

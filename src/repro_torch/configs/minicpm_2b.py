@@ -1,7 +1,8 @@
 """MiniCPM-2B [arXiv:2404.06395; hf] — llama-like dense (MHA), WSD schedule.
 
 The WSD (warmup-stable-decay) learning-rate schedule the paper introduces is
-implemented in repro/train/optimizer.py and selected by this config.
+implemented in repro_torch/train/optimizer.py (``schedule_lr``) and selected
+by this config (``TRAIN_SCHEDULE``).
 """
 
 from repro_torch.configs.base import ModelConfig

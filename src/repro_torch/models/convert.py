@@ -1,5 +1,7 @@
 """Weights carried across: the reference's parameter tree, as numpy
-arrays, into the port's model.
+arrays, into the port's model (``params_from_numpy``), and back
+(``params_to_numpy``, for the parameters and the AdamW moments of a
+train step, to be compared leaf by leaf with the reference's).
 
 The reference keeps each stack of layers along a leading layer axis
 (``blocks.attn.wq.w`` of shape (n_layers, d, h*hd)); here each layer is
@@ -71,6 +73,24 @@ def load_numpy(module: nn.Module, flat: Mapping[str, np.ndarray],
 STACKS = ("blocks", "tail", "enc_blocks")
 
 
+def reference_leaf(name: str) -> str:
+    """The leaf of the reference's tree that the parameter ``name`` is
+    part of: the reference stacks the layers of ``blocks``, ``tail`` and
+    ``enc_blocks`` along a leading axis, so ``blocks.3.attn.wq.w`` is a
+    slice of ``blocks.attn.wq.w``; any other name is its own leaf."""
+    stack, _, rest = name.partition(".")
+    return f"{stack}.{rest.partition('.')[2]}" if stack in STACKS else name
+
+
+def reference_ndim(name: str, param: torch.Tensor) -> int:
+    """The rank of the parameter's leaf in the reference's tree: one more
+    inside a layer stack. Its AdamW decays every leaf of rank >= 2, so a
+    per-layer vector in a stack (a norm's scale, the SSM's ``a_log``) is
+    decayed there, and one outside (``ln_f``, the hybrid's shared block)
+    is not."""
+    return param.ndim + (reference_leaf(name) != name)
+
+
 def params_from_numpy(cfg: ModelConfig, tree: Mapping, device=None) -> LM:
     """``tree``: the reference's ``init_model(key, cfg)`` mapped to numpy
     (``jax.tree.map(np.asarray, params)``). Returns the port's model on
@@ -89,3 +109,41 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping, device=None) -> LM:
         for i in range(n):
             flat[f"{stack}.{i}.{rest}"] = arr[i]
     return load_numpy(model, flat, device)
+
+
+def params_to_numpy(cfg: ModelConfig, params) -> dict:
+    """The inverse of ``params_from_numpy``: the port's model, or a
+    mapping from its dotted parameter names to tensors (the AdamW
+    moments), as the reference's nested tree of numpy arrays, each stack
+    (``blocks``, ``tail``, ``enc_blocks``) stacked again along a leading
+    layer axis. bfloat16 leaves come back as float32 (numpy has no
+    bfloat16 of its own), exactly."""
+    flat = dict(params.named_parameters()) if isinstance(params, nn.Module) \
+        else dict(params)
+    model = init_model(cfg, None, device="meta")
+    if set(flat) != {n for n, _ in model.named_parameters()}:
+        raise ValueError(f"not the parameters of {cfg.name}")
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().to("cpu")
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    stacked: dict[str, list] = {}
+    tree: dict = {}
+    for name, t in flat.items():
+        leaf = reference_leaf(name)
+        if leaf == name:
+            _put(tree, name, host(t))
+        else:
+            stacked.setdefault(leaf, []).append((int(name.split(".")[1]), t))
+    for name, layers in stacked.items():
+        layers.sort(key=lambda it: it[0])
+        _put(tree, name, np.stack([host(t) for _, t in layers]))
+    return tree
+
+
+def _put(tree: dict, dotted: str, value) -> None:
+    *path, leaf = dotted.split(".")
+    for key in path:
+        tree = tree.setdefault(key, {})
+    tree[leaf] = value

@@ -124,8 +124,12 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         seg = s[:, :, :, None, :] - s[:, :, None, :, :]      # (B,NC,Q,Q,H)
         tri = torch.ones((chunk, chunk), dtype=torch.bool,
                          device=x.device).tril()
-        decay = torch.where(tri[None, None, :, :, None], torch.exp(seg),
-                            0.0)
+        # masked before the exp: above the diagonal seg is positive and
+        # its exp overflows to inf within a few dozen steps; the
+        # reference's where(tri, exp(seg), 0) has the same values but a
+        # gradient of 0 * inf = NaN there (ROADMAP Queue C)
+        decay = torch.exp(torch.where(tri[None, None, :, :, None], seg,
+                                      float("-inf")))
         scores = torch.einsum("bcqhn,bckhn->bcqkh", cc.to(torch.float32),
                               bc.to(torch.float32))
         scores = scores * decay * dtc[:, :, None, :, :]

@@ -16,11 +16,16 @@ The reference stacks each family's layers along a leading axis and scans
 over them; here they are an ``nn.ModuleList`` and a Python loop, and the
 per-layer caches are stacked along a leading layer axis as the
 reference's scan returns them. Modes:
+  "train"   tokens -> logits (full sequence, causal, no caches)
   "prefill" tokens -> logits + caches
   "decode"  one token + caches -> logits + caches
 
-The training mode is not ported yet (ROADMAP Queue A, the train step): it
-raises.
+In train mode ``remat=True`` recomputes each block in the backward pass
+(``torch.utils.checkpoint``) where the reference wraps its scan body in
+``jax.checkpoint``: the attention blocks of the dense, moe and vlm stacks
+and of the encoder, and every Mamba2 block (the hybrid's shared attention
+block and the encoder-decoder's decoder blocks are not wrapped, as in the
+reference).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import Attention, _repeat_kv, attention, \
@@ -216,19 +222,39 @@ def _attn_block_apply(blk: AttnBlock, x, cfg: ModelConfig, cache, *,
     return x + out, new_cache, aux, cross_kv
 
 
-def _attn_stack(blocks, x, cfg, caches, *, causal: bool, use_flash: bool):
+def _run(remat: bool, fn, *args):
+    """``fn(*args)``; under ``remat`` its activations are not kept but
+    recomputed in the backward pass."""
+    return checkpoint(fn, *args, use_reentrant=False) if remat \
+        else fn(*args)
+
+
+def _attn_train(blk: AttnBlock, x, cfg, causal: bool, use_flash: bool):
+    """One attention block without caches: (x, the MoE aux loss or
+    None)."""
+    x, _, aux, _ = _attn_block_apply(blk, x, cfg, None, causal=causal,
+                                     use_flash=use_flash)
+    return x, aux
+
+
+def _attn_stack(blocks, x, cfg, caches, *, causal: bool, use_flash: bool,
+                train: bool = False, remat: bool = False):
     """caches: stacked per-layer KVCache for decode, or None (prefill
-    collects fresh ones). Returns (x, the summed aux loss or None,
-    stacked caches)."""
+    collects fresh ones; train keeps none). Returns (x, the summed aux
+    loss or None, stacked caches or None in train mode)."""
     new, aux = [], None
     for i, blk in enumerate(blocks):
-        x, c, aux_l, _ = _attn_block_apply(
-            blk, x, cfg, None if caches is None else _layer(caches, i),
-            causal=causal, use_flash=use_flash)
-        new.append(c)
+        if train:
+            x, aux_l = _run(remat, _attn_train, blk, x, cfg, causal,
+                            use_flash)
+        else:
+            x, c, aux_l, _ = _attn_block_apply(
+                blk, x, cfg, None if caches is None else _layer(caches, i),
+                causal=causal, use_flash=use_flash)
+            new.append(c)
         if aux_l is not None:
             aux = aux_l if aux is None else aux + aux_l
-    return x, aux, _stacked(new)
+    return x, aux, None if train else _stacked(new)
 
 
 def _mamba_layer(blk: MambaBlock, x, cfg, state):
@@ -241,26 +267,37 @@ def _mamba_layer(blk: MambaBlock, x, cfg, state):
     return x + out, st
 
 
-def _ssm_stack(blocks, x, cfg, states, is_decode):
+def _mamba_train(blk: MambaBlock, x, cfg):
+    return _mamba_layer(blk, x, cfg, None)[0]
+
+
+def _ssm_stack(blocks, x, cfg, states, is_decode, train=False, remat=False):
     new = []
     for i, blk in enumerate(blocks):
+        if train:
+            x = _run(remat, _mamba_train, blk, x, cfg)
+            continue
         x, st = _mamba_layer(blk, x, cfg,
                              _layer(states, i) if is_decode else None)
         new.append(st)
-    return x, _stacked(new)
+    return x, None if train else _stacked(new)
 
 
-def _hybrid_stack(params: LM, x, cfg, caches, is_decode, use_flash):
+def _hybrid_stack(params: LM, x, cfg, caches, is_decode, use_flash,
+                  train=False, remat=False):
     """Groups of ``attn_every`` Mamba2 blocks, each followed by the one
     parameter-shared attention block, then the tail. caches: (SSM states
     stacked over n_layers, KV caches stacked over the groups); prefill
-    makes fresh ones (the reference's dummy caches only shape its scan)."""
+    makes fresh ones (the reference's dummy caches only shape its scan),
+    train none."""
     n_groups, grouped = hybrid_groups(cfg)
     states, kv = caches if is_decode else (None, None)
     layers = list(params.blocks) + list(getattr(params, "tail", ()))
     new_states, new_kv = [], []
 
     def mamba(i, x):
+        if train:
+            return _run(remat, _mamba_train, layers[i], x, cfg)
         x, st = _mamba_layer(layers[i], x, cfg,
                              _layer(states, i) if is_decode else None)
         new_states.append(st)
@@ -272,18 +309,19 @@ def _hybrid_stack(params: LM, x, cfg, caches, is_decode, use_flash):
         x, c, _, _ = _attn_block_apply(
             params.shared_attn, x, cfg, _layer(kv, g) if is_decode else None,
             causal=True, use_flash=use_flash)
-        new_kv.append(c)
+        if not train:
+            new_kv.append(c)
     for i in range(grouped, cfg.n_layers):
         x = mamba(i, x)
-    return x, (_stacked(new_states), _stacked(new_kv))
+    return x, None if train else (_stacked(new_states), _stacked(new_kv))
 
 
 def _encdec_stack(params: LM, x, cfg, caches, frontend_embeds, is_decode,
-                  compute_dtype, use_flash):
-    """Prefill encodes the frontend embeddings bidirectionally (the plain
-    product, ``use_flash=False`` as in the reference) into the memory and
-    computes each decoder layer's cross K/V from it; decode reads them
-    from the caches (self KV, (cross K, cross V), memory)."""
+                  compute_dtype, use_flash, train=False, remat=False):
+    """Prefill and train encode the frontend embeddings bidirectionally
+    (the plain product, ``use_flash=False`` as in the reference) into the
+    memory and compute each decoder layer's cross K/V from it; decode
+    reads them from the caches (self KV, (cross K, cross V), memory)."""
     if is_decode:
         kv, cross_kvs, memory = caches
     else:
@@ -291,7 +329,8 @@ def _encdec_stack(params: LM, x, cfg, caches, frontend_embeds, is_decode,
             raise ValueError("the encdec family needs frontend embeddings")
         m, _, _ = _attn_stack(params.enc_blocks,
                               frontend_embeds.to(compute_dtype), cfg, None,
-                              causal=False, use_flash=False)
+                              causal=False, use_flash=False, train=train,
+                              remat=remat)
         memory = rms_norm(params.ln_enc, m, cfg.norm_eps)
         kv = cross_kvs = None
     new_kv, new_ck, new_cv = [], [], []
@@ -302,9 +341,12 @@ def _encdec_stack(params: LM, x, cfg, caches, frontend_embeds, is_decode,
             blk, x, cfg, None if kv is None else _layer(kv, i), causal=True,
             use_flash=use_flash, memory=memory if ckv is None else None,
             mem_cross_kv=ckv)
-        new_kv.append(c)
-        new_ck.append(ck)
-        new_cv.append(cv)
+        if not train:
+            new_kv.append(c)
+            new_ck.append(ck)
+            new_cv.append(cv)
+    if train:
+        return x, None
     return x, (_stacked(new_kv), (torch.stack(new_ck), torch.stack(new_cv)),
                memory)
 
@@ -312,18 +354,21 @@ def _encdec_stack(params: LM, x, cfg, caches, frontend_embeds, is_decode,
 def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor, *,
             mode: str = "prefill", caches: Any = None,
             frontend_embeds: torch.Tensor | None = None,
-            use_flash: bool = False,
+            use_flash: bool = False, remat: bool = False,
             compute_dtype=torch.bfloat16) -> ForwardOut:
     """tokens: (B, L) integer ids. frontend_embeds: (B, S_front, D)
     precomputed embeddings of the stubbed modality: the ``vlm`` prefill
-    puts them in front of the text (and drops their positions from the
-    logits), the ``encdec`` prefill encodes them; decode reads neither."""
+    and train modes put them in front of the text (and drop their
+    positions from the logits), the ``encdec`` prefill and train modes
+    encode them; decode reads neither. ``mode`` defaults to ``"prefill"``
+    (the serving call sites rely on it; the reference's default is
+    ``"train"``). Train mode returns no caches; ``remat`` takes effect
+    only there."""
     _check_family(cfg)
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"mode {mode!r}: the port serves (prefill, decode); the train "
-            f"mode comes with the train step (ROADMAP Queue A)")
-    is_decode = mode == "decode"
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r} is not train, prefill or decode")
+    is_decode, train = mode == "decode", mode == "train"
+    remat = remat and train
     if is_decode and caches is None:
         raise ValueError("decode needs the caches of a prefill")
     fam = cfg.family
@@ -335,16 +380,18 @@ def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor, *,
     if fam in ("dense", "moe", "vlm"):
         x, aux, new_caches = _attn_stack(params.blocks, x, cfg,
                                          caches if is_decode else None,
-                                         causal=True, use_flash=use_flash)
+                                         causal=True, use_flash=use_flash,
+                                         train=train, remat=remat)
     elif fam == "ssm":
-        x, new_caches = _ssm_stack(params.blocks, x, cfg, caches, is_decode)
+        x, new_caches = _ssm_stack(params.blocks, x, cfg, caches, is_decode,
+                                   train, remat)
     elif fam == "hybrid":
         x, new_caches = _hybrid_stack(params, x, cfg, caches, is_decode,
-                                      use_flash)
+                                      use_flash, train, remat)
     else:
         x, new_caches = _encdec_stack(params, x, cfg, caches,
                                       frontend_embeds, is_decode,
-                                      compute_dtype, use_flash)
+                                      compute_dtype, use_flash, train, remat)
     x = rms_norm(params.ln_f, x, cfg.norm_eps)
     if prefix:
         x = x[:, frontend_embeds.shape[1]:]

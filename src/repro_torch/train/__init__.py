@@ -1,2 +1,3 @@
 """Step builders over the port's models (`repro_torch.models`): the
-serving half of ``src/repro/train/``, prefill and decode."""
+train step with its optimizer (`optimizer`), and the prefill and decode
+steps (`steps`), as in ``src/repro/train/``."""

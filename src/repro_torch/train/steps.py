@@ -1,18 +1,24 @@
-"""Serve step builders for every family: ``make_prefill_step`` /
-``make_decode_step`` carry KV caches, SSM states or both (hybrid) or the
-encoder-decoder's (self KV, cross K/V, memory); ``init_caches`` makes a
-decode-mode cache of zeros.
+"""Train and serve step builders for every family.
 
-The training half of the reference's module (``lm_loss``,
-``make_train_step``, ``init_train_state``) waits for the optimizer and
-the gradient compression (ROADMAP Queue A, the train step). The steps run
-without autograd.
+``make_train_step``: the cross-entropy LM loss (+ the MoE aux loss), its
+gradients, the AdamW update (`train.optimizer`), optional microbatch
+gradient accumulation and the cross-pod int8 gradient compression with
+error feedback (`runtime.compression`). ``make_prefill_step`` /
+``make_decode_step``: the serving counterparts carrying KV caches, SSM
+states or both (hybrid) or the encoder-decoder's (self KV, cross K/V,
+memory); ``init_caches`` makes a decode-mode cache of zeros.
+
+The model's parameters carry no gradient (``requires_grad=False``) and
+the serve steps run under ``torch.no_grad()``: a served model never
+builds an autograd graph. Only the train step turns gradients on, for
+the parameters of its own state, for as long as it takes them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
@@ -20,15 +26,165 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer
 from repro_torch.models.attention import KVCache
+from repro_torch.models.convert import reference_leaf, reference_ndim
 from repro_torch.models.ssm import SSMState, init_ssm_state
+from repro_torch.runtime.compression import compress_grads_with_feedback, \
+    init_residuals
+from repro_torch.train.optimizer import AdamWState, OptimizerConfig, \
+    adamw_update, init_adamw
+
+
+class TrainState(NamedTuple):
+    params: transformer.LM
+    opt: AdamWState
+    residuals: dict | None          # error-feedback state (compression)
+    rng: int                        # the reference's key: a seed, unread
 
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
-    """The reference's serving fields; its training fields come with the
-    train step."""
+    """The reference's fields and defaults. ``remat`` acts in the train
+    step only; the serve steps read ``use_flash`` and ``compute_dtype``."""
+    microbatches: int = 1
+    remat: bool = True
     use_flash: bool = False
+    compress_pod_grads: bool = False
     compute_dtype: Any = torch.bfloat16
+    aux_loss_weight: float = 0.01
+
+
+def lm_loss(params: transformer.LM, cfg: ModelConfig, tokens, labels, *,
+            step_cfg: StepConfig, frontend=None):
+    """Returns (loss + aux_loss_weight * aux, {"loss", "aux_loss"}): the
+    mean cross-entropy over the positions whose label is >= 0, from
+    float32 logits and a stable logsumexp whose max carries no gradient
+    (the reference's ``stop_gradient``). The label logit is a gather
+    where the reference contracts with a one-hot: the same value, and no
+    (B, L, V) one-hot."""
+    out = transformer.forward(
+        params, cfg, tokens, mode="train", use_flash=step_cfg.use_flash,
+        remat=step_cfg.remat, compute_dtype=step_cfg.compute_dtype,
+        frontend_embeds=frontend)
+    logits = out.logits.to(torch.float32)
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    lse = m.squeeze(-1) + torch.log(torch.sum(torch.exp(logits - m), dim=-1))
+    mask = (labels >= 0).to(torch.float32)
+    label_logit = torch.gather(logits, -1,
+                               labels.clamp_min(0)[..., None]).squeeze(-1)
+    loss = -torch.sum((label_logit - lse) * mask) / \
+        torch.clamp_min(torch.sum(mask), 1.0)
+    total = loss + step_cfg.aux_loss_weight * out.aux_loss
+    return total, {"loss": loss, "aux_loss": out.aux_loss}
+
+
+@contextlib.contextmanager
+def _grads_on(params: dict[str, torch.Tensor]):
+    """The parameters require a gradient inside the block only."""
+    for p in params.values():
+        p.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            yield
+    finally:
+        for p in params.values():
+            p.requires_grad_(False)
+
+
+def loss_and_grads(model: transformer.LM, cfg: ModelConfig,
+                   step_cfg: StepConfig, batch: dict):
+    """(grads by parameter name, the loss, metrics) of one batch. With
+    ``microbatches`` = mb > 1 the batch is split along its first axis:
+    the grads are the sum of the microbatches' float32 grads over mb and
+    the loss the sum of their totals (loss + the weighted aux loss) over
+    mb, and the reported ``aux_loss`` is zero, all as the reference
+    reports them (``steps.py:100-109``). A parameter the loss does not
+    reach gets a zero gradient."""
+    params = dict(model.named_parameters())
+    names = list(params)
+    mb = step_cfg.microbatches
+    fr = batch.get("frontend")
+    if batch["tokens"].shape[0] % mb:
+        raise ValueError(f"batch {batch['tokens'].shape[0]} does not split "
+                         f"into {mb} microbatches")
+    parts = list(zip(batch["tokens"].chunk(mb), batch["labels"].chunk(mb),
+                     fr.chunk(mb) if fr is not None else [None] * mb))
+    acc = loss_sum = None
+    with _grads_on(params):
+        for tokens, labels, frontend in parts:
+            total, metrics = lm_loss(model, cfg, tokens, labels,
+                                     step_cfg=step_cfg, frontend=frontend)
+            g = torch.autograd.grad(total, [params[n] for n in names],
+                                    allow_unused=True,
+                                    materialize_grads=True)
+            if mb == 1:
+                return dict(zip(names, g)), metrics["loss"].detach(), \
+                    {k: v.detach() for k, v in metrics.items()}
+            if acc is None:
+                acc = {n: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device)
+                       for n, p in params.items()}
+                loss_sum = 0.0
+            for n, t in zip(names, g):
+                acc[n] += t
+            loss_sum = loss_sum + total.detach()
+            del g, total, metrics
+    loss = loss_sum / mb
+    return {n: t / mb for n, t in acc.items()}, loss, {
+        "loss": loss, "aux_loss": torch.zeros((), dtype=torch.float32,
+                                              device=loss.device)}
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
+                    step_cfg: StepConfig):
+    """``train_step(state, batch) -> (new state, metrics)``; ``batch``
+    holds ``tokens`` and ``labels`` (B, L) and, for the vlm and encdec
+    families, ``frontend`` (B, S, D). The grads (`loss_and_grads`), then
+    the int8 compression with error feedback when ``compress_pod_grads``
+    is set and the state has residuals, then AdamW. Both follow the
+    reference's stacked tree: the compression scales each stacked leaf
+    (every layer of a stack) as one tensor, and AdamW decays the leaves
+    that are matrices there (every per-layer vector of a stack
+    included). The update is in place: the new state holds the same
+    parameter and moment tensors. Metrics: ``loss``, ``aux_loss``,
+    ``lr``, ``grad_norm`` (0-d tensors on the parameters' device)."""
+    if step_cfg.use_flash:
+        raise ValueError("use_flash: flash_attention has no backward, and "
+                         "the reference cannot differentiate its own "
+                         "kernel; the train step runs the plain product")
+
+    def train_step(state: TrainState, batch: dict):
+        grads, _, metrics = loss_and_grads(state.params, cfg, step_cfg,
+                                           batch)
+        residuals = state.residuals
+        if step_cfg.compress_pod_grads and residuals is not None:
+            grads, residuals = compress_grads_with_feedback(
+                grads, residuals, leaf_of=reference_leaf)
+        params = dict(state.params.named_parameters())
+        _, new_opt, opt_metrics = adamw_update(
+            opt_cfg, params, grads, state.opt,
+            decay={n for n, p in params.items() if reference_ndim(n, p) >= 2})
+        return TrainState(params=state.params, opt=new_opt,
+                          residuals=residuals, rng=state.rng + 1), \
+            {**metrics, **opt_metrics}
+
+    return train_step
+
+
+def init_train_state(seed: int, cfg: ModelConfig, step_cfg: StepConfig,
+                     param_dtype=torch.float32, device=None) -> TrainState:
+    """A model drawn from ``seed`` on ``device``, zero AdamW moments and,
+    under ``compress_pod_grads``, zero residuals. The step advances
+    ``rng`` by one, as the reference folds 1 into its key; nothing in
+    the step draws from it."""
+    gen = torch.Generator(device=device or "cpu")
+    gen.manual_seed(seed)
+    model = transformer.init_model(cfg, gen, param_dtype, device)
+    params = dict(model.named_parameters())
+    return TrainState(
+        params=model, opt=init_adamw(params),
+        residuals=init_residuals(params)
+        if step_cfg.compress_pod_grads else None,
+        rng=seed)
 
 
 def make_prefill_step(cfg: ModelConfig, step_cfg: StepConfig):

@@ -737,3 +737,115 @@ def test_family_prefill_flash_vs_plain_and_greedy(cuda, arch, layers, want):
     rel = float((lf.double() - lp.double()).norm() / lp.double().norm())
     assert rel <= NUMERICS_TOL["flash_attention"], rel
     assert torch.equal(tokens[True], tokens[False])
+
+
+# ---------------------------------------------------------------------------
+# The train step on the card (`repro_torch.train`)
+# ---------------------------------------------------------------------------
+
+#: lr 1e-3 under a 4-step warmup: 2.5e-4 at the first step.
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=4, total_steps=20, schedule="wsd")
+
+
+def _train_pair(cuda, arch, seq, seed=11):
+    """The reduced ``arch`` drawn on the host and copied to the card, and
+    a batch of 2 x ``seq`` tokens with next-token labels (and frontend
+    embeddings where the family takes them): (cfg, host model, card
+    model, host batch, card batch)."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+    cfg = get_config(arch).reduced()
+    g = torch.Generator().manual_seed(seed)
+    host = init_model(cfg, g, torch.float32)
+    card = copy.deepcopy(host).to(cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, seq), generator=g)
+    batch = {"tokens": toks, "labels": torch.cat(
+        [toks[:, 1:], torch.full((2, 1), -1)], dim=1)}
+    if cfg.family in ("vlm", "encdec"):
+        batch["frontend"] = torch.randn((2, cfg.frontend_seq, cfg.d_model),
+                                        generator=g)
+    return cfg, host, card, batch, {k: v.to(cuda) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "qwen2-moe-a2.7b",
+                                  "zamba2-1.2b"])
+def test_train_step_card_vs_host(cuda, arch):
+    """One float32 train step on the card against the same step on the
+    host from the same weights and batch: loss and grad norm within
+    1e-4 relative; m and v within 1e-4 of their leaf's largest entry;
+    each weight within lr * 1e-3 (plus 2 ulp) where its gradient is
+    above 1e-6, else within 2 * lr (a first Adam step moves a weight by
+    about lr * sign(g), and a near-zero gradient's sign is not
+    stable); and no kernel launched."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.matmul_int8 import kernel as mm_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.train import optimizer, steps
+    cfg, host, card, hb, cb = _train_pair(cuda, arch, 32)
+    opt = optimizer.OptimizerConfig(**TRAIN_OPT)
+    sc = steps.StepConfig(compute_dtype=torch.float32)
+    states = {}
+    before = [m.launches for m in (fa_kernel, mm_kernel, ssd_kernel)]
+    for name, model, batch in (("host", host, hb), ("card", card, cb)):
+        params = dict(model.named_parameters())
+        st = steps.TrainState(model, optimizer.init_adamw(params), None, 0)
+        states[name] = steps.make_train_step(cfg, opt, sc)(st, batch)
+    assert [m.launches for m in (fa_kernel, mm_kernel, ssd_kernel)] == before
+    (hs, hm), (cs, cm) = states["host"], states["card"]
+    for key in ("loss", "grad_norm", "aux_loss"):
+        assert float(cm[key]) == pytest.approx(float(hm[key]), rel=1e-4,
+                                               abs=1e-6), key
+    lr = float(hm["lr"])
+    b1 = opt.betas[0]
+    for name, p in hs.params.named_parameters():
+        got = dict(cs.params.named_parameters())[name].cpu()
+        for ours, theirs in ((cs.opt.m[name].cpu(), hs.opt.m[name]),
+                             (cs.opt.v[name].cpu(), hs.opt.v[name])):
+            top = float(theirs.abs().max())
+            assert float((ours - theirs).abs().max()) <= 1e-4 * top, name
+        g = hs.opt.m[name] / (1 - b1)
+        tight = lr * 1e-3 + 2 * torch.finfo(torch.float32).eps * p.abs()
+        allowed = torch.where(g.abs() > 1e-6, tight,
+                              torch.full_like(p, 2 * lr * (1 + 1e-3)))
+        assert bool(((got - p).abs() <= allowed).all()), name
+
+
+def test_train_step_microbatches_on_the_card(cuda):
+    """On the card, 2 microbatches give the one-batch loss and gradients
+    within 1e-5 of the largest gradient of each leaf."""
+    from repro_torch.train import steps
+    cfg, _, card, _, cb = _train_pair(cuda, "glm4-9b", 32, seed=12)
+    out = {mb: steps.loss_and_grads(card, cfg, steps.StepConfig(
+        compute_dtype=torch.float32, microbatches=mb), cb) for mb in (1, 2)}
+    assert float(out[2][1]) == pytest.approx(float(out[1][1]), rel=1e-5)
+    for name, g in out[1][0].items():
+        err = float((out[2][0][name] - g).abs().max())
+        assert err <= 1e-5 * float(g.abs().max()) + 1e-12, name
+
+
+def test_compression_card_vs_host_bit_equal(cuda):
+    """The int8 compression with error feedback on the card gives the
+    host's codes, decompressed gradients and residuals bit for bit (the
+    scale is a correctly rounded division, the codes round half to even
+    on both), over two steps, with layers grouped into stacked leaves."""
+    from repro_torch.models.convert import reference_leaf
+    from repro_torch.runtime.compression import \
+        compress_grads_with_feedback, init_residuals
+    g = torch.Generator().manual_seed(13)
+    shapes = {"blocks.0.w": (64, 96), "blocks.1.w": (64, 96),
+              "ln_f.scale": (96,), "embed.table": (300, 64)}
+    host_res = init_residuals({k: torch.empty(s) for k, s in shapes.items()})
+    card_res = {k: v.to(cuda) for k, v in host_res.items()}
+    for step in range(2):
+        grads = {k: torch.randn(s, generator=g) * 10.0 ** (step - 3)
+                 for k, s in shapes.items()}
+        h_out, host_res = compress_grads_with_feedback(
+            grads, host_res, leaf_of=reference_leaf)
+        c_out, card_res = compress_grads_with_feedback(
+            {k: v.to(cuda) for k, v in grads.items()}, card_res,
+            leaf_of=reference_leaf)
+        for k in shapes:
+            assert torch.equal(c_out[k].cpu(), h_out[k]), k
+            assert torch.equal(card_res[k].cpu(), host_res[k]), k

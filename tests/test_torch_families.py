@@ -439,13 +439,30 @@ def test_encdec_prefill_needs_frontend():
 
 
 def test_forward_train_mode_raises_for_every_family():
+    """The name is kept from when the train mode raised, before the train
+    step was ported (`tests/test_torch_train.py` holds that step). On
+    the same models the call now returns the (B, L, V) logits of the
+    text (the vlm's frontend positions dropped), no caches, and a finite
+    positive aux loss for the MoE model (zero otherwise); the
+    encoder-decoder without frontend embeddings raises, as its prefill
+    does."""
     for arch in ARCHS[:1] + ARCHS[2:4] + ARCHS[5:]:
         cfg, _ = configs(arch)
-        model = transformer.init_model(cfg, None, device="meta")
-        with pytest.raises(NotImplementedError, match="train step"):
-            transformer.forward(model, cfg, torch.zeros((1, 4),
-                                                        dtype=torch.long),
-                                mode="train")
+        model = transformer.init_model(cfg, torch.Generator().manual_seed(0))
+        toks = torch.randint(0, cfg.vocab_size, (2, 6),
+                             generator=torch.Generator().manual_seed(1))
+        fr = _frontend(cfg, 2, 2)
+        if cfg.family == "encdec":
+            with pytest.raises(ValueError, match="frontend"):
+                transformer.forward(model, cfg, toks, mode="train")
+        out = transformer.forward(
+            model, cfg, toks, mode="train",
+            frontend_embeds=None if fr is None else T(fr))
+        assert tuple(out.logits.shape) == (2, 6, cfg.padded_vocab()), arch
+        assert out.caches is None and torch.isfinite(out.logits).all()
+        aux = float(out.aux_loss)
+        assert (aux > 0 and np.isfinite(aux)) if cfg.family == "moe" \
+            else aux == 0.0
 
 
 @pytest.mark.parametrize("arch", ARCHS[:4] + ARCHS[5:])

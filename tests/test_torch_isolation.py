@@ -2,8 +2,8 @@
 `chip_smoke.py`, imports JAX, the JAX package or its benchmarks, and the
 reduced slices (`serve_lm`, `exec_lm` over mamba2-1.3b, ``python -m
 repro_torch.serve_lm --live`` for glm4-9b, mamba2-1.3b and
-qwen2-moe-a2.7b, and ``serve_lm --traffic``) run in a process where none
-of them can be imported."""
+qwen2-moe-a2.7b, ``serve_lm --traffic``, and the train step) run in a
+process where none of them can be imported."""
 
 import ast
 import os
@@ -110,3 +110,36 @@ def test_moe_live_and_traffic_run_with_jax_and_reference_blocked(tmp_path):
     assert res.returncode == 0, res.stderr[-3000:]
     assert "ISOLATED-OK" in res.stdout
     assert "continuous batching:" in res.stdout
+
+
+def test_train_step_runs_with_jax_and_reference_blocked(tmp_path):
+    """Two train steps of reduced minicpm-2b (WSD) and qwen2-moe-a2.7b,
+    with 2 microbatches and the int8 compression on."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = sys.modules['repro'] = None\n"
+        "sys.modules['benchmarks'] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.train import optimizer, steps\n"
+        "for arch in ('minicpm-2b', 'qwen2-moe-a2.7b'):\n"
+        "    cfg = get_config(arch).reduced()\n"
+        "    sc = steps.StepConfig(compute_dtype=torch.float32,\n"
+        "                          microbatches=2, compress_pod_grads=True)\n"
+        "    state = steps.init_train_state(0, cfg, sc)\n"
+        "    step = steps.make_train_step(\n"
+        "        cfg, optimizer.OptimizerConfig(schedule='wsd'), sc)\n"
+        "    toks = torch.randint(0, cfg.vocab_size, (4, 8))\n"
+        "    for _ in range(2):\n"
+        "        state, met = step(state, {'tokens': toks, 'labels': toks})\n"
+        "    assert torch.isfinite(met['loss']) and int(state.opt.step) == 2\n"
+        "    assert state.residuals is not None\n"
+        "assert not any(m.split('.')[0] in ('jax', 'repro', 'benchmarks')\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ISOLATED-OK')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "ISOLATED-OK" in res.stdout

@@ -529,11 +529,24 @@ def test_init_caches_match_jax(quant, monkeypatch):
 
 
 def test_forward_train_mode_raises():
+    """The name is kept from when the train mode raised, before the train
+    step was ported (`tests/test_torch_train.py` holds that step). The
+    same call now returns the (B, L, V) logits of the whole sequence,
+    equal to the prefill's, no caches and a zero aux loss, with remat on
+    or off; a mode the reference does not have raises."""
     cfg = get_config("glm4-9b").reduced()
     model = transformer.init_model(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="train step"):
-        transformer.forward(model, cfg, torch.zeros((1, 4), dtype=torch.long),
-                            mode="train")
+    toks = torch.randint(0, cfg.vocab_size, (2, 6),
+                         generator=torch.Generator().manual_seed(1))
+    pre = transformer.forward(model, cfg, toks, mode="prefill")
+    for remat in (False, True):
+        out = transformer.forward(model, cfg, toks, mode="train",
+                                  remat=remat)
+        assert tuple(out.logits.shape) == (2, 6, cfg.padded_vocab())
+        assert out.caches is None and float(out.aux_loss) == 0.0
+        assert torch.equal(out.logits, pre.logits)
+    with pytest.raises(ValueError, match="mode"):
+        transformer.forward(model, cfg, toks, mode="encode")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
