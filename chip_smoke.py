@@ -76,19 +76,6 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      print the card's name and power limit. Then ``[traffic]``:
      ``serve_lm --traffic``, the request-level simulator (host only),
      continuous batching no slower than serial;
-     J. ``repro_torch.train.steps.make_train_step`` for minicpm-2b at its
-        published widths (random float32 weights from the seed, 10.9 GB;
-        bf16 compute, remat, the config's WSD schedule), once every
-        served model is freed: 6 steps on one batch of 4 x 1,024 tokens,
-        every loss finite, the first beside ln V, the last TRAIN_MARGIN
-        below the first, none of the three kernels launched (no kernel
-        has a backward; the train step runs the plain products); step
-        ms, tokens/s, peak bytes and a profiled step's busy share. Then
-        ``[train holds]`` at published widths and 2 layers, float32:
-        one step on the card against the same step on the host (loss,
-        grad norm, weights, both moments), 2 microbatches against 1, and
-        the int8 compression of the card's gradients (residuals within
-        half a scale, bit-equal to the host function's);
   4. kernels vs plain — each kernel against its plain PyTorch version on
      the same inputs on the card: matmul_int8 integer-exact with unit
      scales at K <= 1024 and at K = 1 and M = 1 for every tile, bit-equal
@@ -116,10 +103,25 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      the port) and the least time the card could take (bound). Paths A
      and B already hold every op of theirs against its oracle, and path
      C every op of its plans;
-  5. the ``kernels`` line: matmul_int8 and flash_attention count-weighted
+  5. path J, after the kernels' timings, so that its ~50 GB of state
+     and its minute of full load on the card touch none of them:
+     ``repro_torch.train.steps.make_train_step`` for minicpm-2b at its
+     published widths (random float32 weights from the seed, 10.9 GB;
+     bf16 compute, remat, the config's WSD schedule), once every served
+     model is freed: 6 steps on one batch of 4 x 1,024 tokens, every
+     loss finite, the first beside ln V, the last TRAIN_MARGIN below the
+     first, none of the three kernels launched (no kernel has a
+     backward; the train step runs the plain products); step ms,
+     tokens/s, peak bytes and a profiled step's busy share. Then
+     ``[train holds]`` at published widths and 2 layers, float32: one
+     step on the card against the same step on the host (loss, grad
+     norm, weights, both moments), 2 microbatches against 1, and the
+     int8 compression of the card's gradients (residuals within half a
+     scale, bit-equal to the host function's);
+  6. the ``kernels`` line: matmul_int8 and flash_attention count-weighted
      over path A's plan (one decode step), ssd_scan over path B's (one
      prompt pass); launches are summed over the main paths A-J;
-  6. the last line: ``{"ok": true, "device": {...}}``.
+  7. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero before printing any result.
@@ -983,8 +985,8 @@ def _train_holds(torch, info: dict, cfg) -> dict:
     import copy
     import dataclasses
 
-    from repro_torch.models.convert import reference_leaf
     from repro_torch.models.transformer import init_model
+    from repro_torch.param_names import reference_leaf
     from repro_torch.runtime import compression
     from repro_torch.train import optimizer, steps
     hcfg = dataclasses.replace(cfg, n_layers=TRAIN_HOLD_LAYERS)
@@ -1045,8 +1047,7 @@ def _train_holds(torch, info: dict, cfg) -> dict:
     g = grads[1][0]
     del grads
     res0 = compression.init_residuals(g)
-    deq, res = compression.compress_grads_with_feedback(
-        g, res0, leaf_of=reference_leaf)
+    deq, res = compression.compress_grads_with_feedback(g, res0)
     worst = 0.0
     leaves: dict[str, list[str]] = {}
     for n in g:
@@ -1058,7 +1059,7 @@ def _train_holds(torch, info: dict, cfg) -> dict:
                     scale)
     hdeq, hres = compression.compress_grads_with_feedback(
         {n: t.cpu() for n, t in g.items()},
-        {n: t.cpu() for n, t in res0.items()}, leaf_of=reference_leaf)
+        {n: t.cpu() for n, t in res0.items()})
     equal = all(torch.equal(deq[n].cpu(), hdeq[n]) and
                 torch.equal(res[n].cpu(), hres[n]) for n in g)
     print(f"[train holds] int8 compression on the card's gradients "
@@ -1619,24 +1620,36 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.monotonic()
 
-    info = phase_device(torch)
-    phase_build(torch)
-    rep_a, launch_a = phase_path_a(torch)
-    rep_b, launch_b = phase_path_b(torch)
-    out_c, launch_c = phase_path_c(torch)
-    live_e, launch_e = phase_path_e(torch, info)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.monotonic()
+        out = fn(*args)
+        seconds[name] = round(time.monotonic() - t, 1)
+        return out
+
+    info = timed("device", phase_device, torch)
+    timed("build", phase_build, torch)
+    rep_a, launch_a = timed("A", phase_path_a, torch)
+    rep_b, launch_b = timed("B", phase_path_b, torch)
+    out_c, launch_c = timed("C", phase_path_c, torch)
+    live_e, launch_e = timed("E", phase_path_e, torch, info)
     launches = {"A": launch_a, "B": launch_b, "C": launch_c, "E": launch_e}
     lives = {"E": live_e}
     for label, arch, want, turns in LIVE_FAMILIES:
-        lives[label], launches[label] = phase_path_family(
-            torch, info, label, arch, want, turns)
-    traffic = phase_traffic(info)
-    lives["J"], launches["J"] = phase_path_j(torch, info)
+        lives[label], launches[label] = timed(
+            label, phase_path_family, torch, info, label, arch, want, turns)
+    traffic = timed("traffic", phase_traffic, info)
     plans = [("A", rep_a.plan), ("B", rep_b.plan)]
     timer = Timer(torch)
-    mm = matmul_rows(torch, plans, timer)
-    fa = flash_rows(torch, rep_a.plan, out_c, timer)
-    ssd = ssd_rows(torch, plans, timer)
+    mm = timed("matmul rows", matmul_rows, torch, plans, timer)
+    fa = timed("flash rows", flash_rows, torch, rep_a.plan, out_c, timer)
+    ssd = timed("ssd rows", ssd_rows, torch, plans, timer)
+    # the training path runs after the kernels' timings, so that its
+    # ~50 GB of state and minute of full load on the card touch none of
+    # the kernels line's times; its launches (none) join the line
+    _free(torch)
+    lives["J"], launches["J"] = timed("J", phase_path_j, torch, info)
     kernels = [kernel_entry("matmul_int8", mm, "A", launches),
                kernel_entry("flash_attention", fa, "A", launches),
                kernel_entry("ssd_scan", ssd, "B", launches)]
@@ -1653,6 +1666,7 @@ def main() -> int:
         print(f"[main {label}] report: {json.dumps(live)}; card "
               f"{info['nvidia_smi']}")
     print(f"[traffic] report: {json.dumps(traffic)}")
+    print(f"[smoke] seconds by phase: {json.dumps(seconds)}")
     print(f"[smoke] all phases passed in {time.monotonic() - t0:.1f} s",
           flush=True)
     print(info["nvidia_smi"])

@@ -25,6 +25,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import LM, init_model
+from repro_torch.param_names import STACKS, reference_leaf
 
 
 def flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -68,27 +69,6 @@ def load_numpy(module: nn.Module, flat: Mapping[str, np.ndarray],
             _to_tensor(np.asarray(flat[name])).to(device),
             requires_grad=False))
     return module
-
-
-STACKS = ("blocks", "tail", "enc_blocks")
-
-
-def reference_leaf(name: str) -> str:
-    """The leaf of the reference's tree that the parameter ``name`` is
-    part of: the reference stacks the layers of ``blocks``, ``tail`` and
-    ``enc_blocks`` along a leading axis, so ``blocks.3.attn.wq.w`` is a
-    slice of ``blocks.attn.wq.w``; any other name is its own leaf."""
-    stack, _, rest = name.partition(".")
-    return f"{stack}.{rest.partition('.')[2]}" if stack in STACKS else name
-
-
-def reference_ndim(name: str, param: torch.Tensor) -> int:
-    """The rank of the parameter's leaf in the reference's tree: one more
-    inside a layer stack. Its AdamW decays every leaf of rank >= 2, so a
-    per-layer vector in a stack (a norm's scale, the SSM's ``a_log``) is
-    decayed there, and one outside (``ln_f``, the hybrid's shared block)
-    is not."""
-    return param.ndim + (reference_leaf(name) != name)
 
 
 def params_from_numpy(cfg: ModelConfig, tree: Mapping, device=None) -> LM:

@@ -363,10 +363,14 @@ def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor, *,
     encode them; decode reads neither. ``mode`` defaults to ``"prefill"``
     (the serving call sites rely on it; the reference's default is
     ``"train"``). Train mode returns no caches; ``remat`` takes effect
-    only there."""
+    only there. Train mode with ``use_flash`` raises: the flash kernel
+    has no backward, and its output would carry no gradient."""
     _check_family(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r} is not train, prefill or decode")
+    if mode == "train" and use_flash:
+        raise ValueError("train mode with use_flash: flash_attention has "
+                         "no backward; train on the plain product")
     is_decode, train = mode == "decode", mode == "train"
     remat = remat and train
     if is_decode and caches is None:

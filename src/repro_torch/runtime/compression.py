@@ -12,9 +12,11 @@ reference's bit for bit.
 
 from __future__ import annotations
 
-from typing import Callable, Mapping
+from typing import Mapping
 
 import torch
+
+from repro_torch.param_names import reference_leaf
 
 
 def _scale(amax: torch.Tensor) -> torch.Tensor:
@@ -37,20 +39,17 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def compress_grads_with_feedback(
-        grads: Mapping[str, torch.Tensor],
-        residuals: Mapping[str, torch.Tensor],
-        leaf_of: Callable[[str], str] | None = None):
+def compress_grads_with_feedback(grads: Mapping[str, torch.Tensor],
+                                 residuals: Mapping[str, torch.Tensor]):
     """Returns (the decompressed grads as they would arrive after the
     all-reduce, in each gradient's dtype; the new float32 residuals).
-    Error feedback: residual = (g + r) - Q(g + r). ``leaf_of`` maps a
-    name to the leaf of the reference's tree that the tensor is a slice
-    of: the slices of one leaf share one scale, as the reference scales
-    each stacked leaf of its layer stacks as one tensor
-    (`convert.reference_leaf`); by default each tensor is a leaf."""
+    Error feedback: residual = (g + r) - Q(g + r). The tensors that are
+    slices of one leaf of the reference's tree share one scale, as the
+    reference scales each stacked leaf of its layer stacks as one tensor
+    (`param_names.reference_leaf`)."""
     leaves: dict[str, list[str]] = {}
     for name in grads:
-        leaves.setdefault(leaf_of(name) if leaf_of else name, []).append(name)
+        leaves.setdefault(reference_leaf(name), []).append(name)
     out, new_res = {}, {}
     for names in leaves.values():
         g32 = {n: grads[n].to(torch.float32) + residuals[n] for n in names}

@@ -15,9 +15,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Collection, Mapping, NamedTuple
+from typing import Mapping, NamedTuple
 
 import torch
+
+from repro_torch.param_names import reference_ndim
 
 
 class AdamWState(NamedTuple):
@@ -87,21 +89,17 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(cfg: OptimizerConfig, params: Mapping[str, torch.Tensor],
-                 grads: Mapping[str, torch.Tensor], state: AdamWState, *,
-                 decay: Collection[str] | None = None):
+                 grads: Mapping[str, torch.Tensor], state: AdamWState):
     """One AdamW step: the gradients clipped to ``grad_clip`` by their
     global norm, bias correction at the new step (from 1, in float32),
-    decoupled weight decay on matrices only, the update in float32 cast
-    back to each leaf's dtype. ``decay`` names the leaves that are
-    matrices (``ndim >= 2``) in the reference's tree; by default those
-    of ``ndim >= 2`` here (the train step passes the reference's rule for
-    its layer stacks, `convert.reference_ndim`). ``params`` and the
-    moments are written in place; returns (params, the new state,
-    ``{"lr", "grad_norm"}``)."""
+    decoupled weight decay on the leaves that are matrices (``ndim >=
+    2``) in the reference's tree (`param_names.reference_ndim`: every
+    per-layer vector of a layer stack included), the update in float32
+    cast back to each leaf's dtype. ``params`` and the moments are
+    written in place; returns (params, the new state, ``{"lr",
+    "grad_norm"}``)."""
     if set(grads) != set(params) or set(state.m) != set(params):
         raise ValueError("params, grads and moments name different leaves")
-    if decay is None:
-        decay = {name for name, p in params.items() if p.ndim >= 2}
     gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0) \
         if cfg.grad_clip else 1.0
@@ -116,7 +114,7 @@ def adamw_update(cfg: OptimizerConfig, params: Mapping[str, torch.Tensor],
         m32 = b1 * m.to(torch.float32) + (1 - b1) * g
         v32 = b2 * v.to(torch.float32) + (1 - b2) * torch.square(g)
         delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
-        if name in decay:  # decoupled weight decay on matrices only
+        if reference_ndim(name, p) >= 2:  # decoupled weight decay
             delta = delta + cfg.weight_decay * p.to(torch.float32)
         p.copy_(p.to(torch.float32) - lr * delta)
         m.copy_(m32)

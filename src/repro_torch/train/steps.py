@@ -26,7 +26,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer
 from repro_torch.models.attention import KVCache
-from repro_torch.models.convert import reference_leaf, reference_ndim
 from repro_torch.models.ssm import SSMState, init_ssm_state
 from repro_torch.runtime.compression import compress_grads_with_feedback, \
     init_residuals
@@ -97,8 +96,9 @@ def loss_and_grads(model: transformer.LM, cfg: ModelConfig,
     the grads are the sum of the microbatches' float32 grads over mb and
     the loss the sum of their totals (loss + the weighted aux loss) over
     mb, and the reported ``aux_loss`` is zero, all as the reference
-    reports them (``steps.py:100-109``). A parameter the loss does not
-    reach gets a zero gradient."""
+    reports them (``steps.py:100-109``). Every parameter must be reached
+    by the loss: one that is not raises, as does ``use_flash`` (the train
+    mode of `transformer.forward`)."""
     params = dict(model.named_parameters())
     names = list(params)
     mb = step_cfg.microbatches
@@ -113,9 +113,7 @@ def loss_and_grads(model: transformer.LM, cfg: ModelConfig,
         for tokens, labels, frontend in parts:
             total, metrics = lm_loss(model, cfg, tokens, labels,
                                      step_cfg=step_cfg, frontend=frontend)
-            g = torch.autograd.grad(total, [params[n] for n in names],
-                                    allow_unused=True,
-                                    materialize_grads=True)
+            g = torch.autograd.grad(total, [params[n] for n in names])
             if mb == 1:
                 return dict(zip(names, g)), metrics["loss"].detach(), \
                     {k: v.detach() for k, v in metrics.items()}
@@ -157,12 +155,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
                                            batch)
         residuals = state.residuals
         if step_cfg.compress_pod_grads and residuals is not None:
-            grads, residuals = compress_grads_with_feedback(
-                grads, residuals, leaf_of=reference_leaf)
-        params = dict(state.params.named_parameters())
+            grads, residuals = compress_grads_with_feedback(grads,
+                                                            residuals)
         _, new_opt, opt_metrics = adamw_update(
-            opt_cfg, params, grads, state.opt,
-            decay={n for n, p in params.items() if reference_ndim(n, p) >= 2})
+            opt_cfg, dict(state.params.named_parameters()), grads, state.opt)
         return TrainState(params=state.params, opt=new_opt,
                           residuals=residuals, rng=state.rng + 1), \
             {**metrics, **opt_metrics}

@@ -830,7 +830,6 @@ def test_compression_card_vs_host_bit_equal(cuda):
     host's codes, decompressed gradients and residuals bit for bit (the
     scale is a correctly rounded division, the codes round half to even
     on both), over two steps, with layers grouped into stacked leaves."""
-    from repro_torch.models.convert import reference_leaf
     from repro_torch.runtime.compression import \
         compress_grads_with_feedback, init_residuals
     g = torch.Generator().manual_seed(13)
@@ -841,11 +840,9 @@ def test_compression_card_vs_host_bit_equal(cuda):
     for step in range(2):
         grads = {k: torch.randn(s, generator=g) * 10.0 ** (step - 3)
                  for k, s in shapes.items()}
-        h_out, host_res = compress_grads_with_feedback(
-            grads, host_res, leaf_of=reference_leaf)
+        h_out, host_res = compress_grads_with_feedback(grads, host_res)
         c_out, card_res = compress_grads_with_feedback(
-            {k: v.to(cuda) for k, v in grads.items()}, card_res,
-            leaf_of=reference_leaf)
+            {k: v.to(cuda) for k, v in grads.items()}, card_res)
         for k in shapes:
             assert torch.equal(c_out[k].cpu(), h_out[k]), k
             assert torch.equal(card_res[k].cpu(), host_res[k]), k

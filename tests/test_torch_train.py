@@ -9,9 +9,12 @@ leaf by leaf. Each reference step is jitted once, in a module-scoped
 fixture, with ``remat=False`` (``jax.checkpoint`` changes no value); the
 port runs its default ``remat=True``, and `test_remat_gives_the_same_grads`
 holds that remat changes none of its gradients. Batches are 2 x 16
-tokens; the ssm and hybrid families take 2 x 4, because from 6 tokens on
-the reference's own SSD gradient is NaN (`test_reference_ssd_grads_
-overflow`, ROADMAP Queue C).
+tokens; the ssm and hybrid families take 2 x 4, because with one chunk
+over the sequence (the SSD's chunk is min(256, L)) the reference's own
+SSD gradient is NaN from 6 tokens on (`test_reference_ssd_grads_
+overflow`, ROADMAP Queue C). `test_ssm_step_across_chunks_matches_jax`
+holds them at 16 tokens in chunks of 4 on both sides, through the
+inter-chunk recurrence.
 
 Tolerances, float32 throughout:
 - ``F32 = dict(rtol=1e-4, atol=1e-5)`` for losses, norms and the like:
@@ -30,6 +33,7 @@ Tolerances, float32 throughout:
   codes, scales, decompressed gradients and residuals bit-equal."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -111,16 +115,18 @@ def _batch(cfg, seed=0, batch=BATCH, seq=None):
     return port, {k: J(v) for k, v in arrays.items()}
 
 
-def _run_both(arch, *, microbatches=1, compress=False, record=False):
+def _run_both(arch, *, microbatches=1, compress=False, record=False,
+              seq=None):
     """One train step of the reduced ``arch`` on both sides from the
-    reference's initial state: (port state, port metrics, reference
-    state, reference metrics, routing records or None)."""
+    reference's initial state, on ``seq`` tokens (default `seq_of`):
+    (port state, port metrics, reference state, reference metrics,
+    routing records or None)."""
     cfg, jcfg = get_config(arch).reduced(), jax_config(arch).reduced()
     jcfg_step = jsteps.StepConfig(remat=False, compute_dtype=jnp.float32,
                                   microbatches=microbatches,
                                   compress_pod_grads=compress)
     state = jsteps.init_train_state(jax.random.PRNGKey(0), jcfg, jcfg_step)
-    pbatch, jbatch = _batch(cfg)
+    pbatch, jbatch = _batch(cfg, seq=seq)
     jstep = jax.jit(jsteps.make_train_step(
         jcfg, jopt.OptimizerConfig(**OPT), jcfg_step))
     jnew, jmet = jstep(state, jbatch)
@@ -251,6 +257,27 @@ def test_train_step_matches_jax(stepped):
     _check_state(cfg, pnew, jnew, float(jmet["lr"]))
     assert pnew.rng == 1
     assert not any(p.requires_grad for p in pnew.params.parameters())
+
+
+#: The SSD chunk of `test_ssm_step_across_chunks_matches_jax`: SEQ / CHUNK
+#: chunks, each short enough that the reference's gradient stays finite.
+CHUNK = 4
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b"])
+def test_ssm_step_across_chunks_matches_jax(arch, monkeypatch):
+    """One step of the ssm and hybrid families at SEQ tokens with
+    ``mamba2_block`` in chunks of CHUNK on both sides: the gradient of
+    the inter-chunk recurrence (each chunk's decay and summary state,
+    the loop over chunks) held like `test_train_step_matches_jax`'s."""
+    for mod in (jtf, transformer):
+        monkeypatch.setattr(mod, "mamba2_block", functools.partial(
+            mod.mamba2_block, chunk=CHUNK))
+    pnew, pmet, jnew, jmet, _ = _run_both(arch, seq=SEQ)
+    assert np.isfinite(float(jmet["grad_norm"]))
+    for key in ("loss", "aux_loss", "lr", "grad_norm"):
+        close(float(pmet[key]), float(jmet[key]))
+    _check_state(get_config(arch).reduced(), pnew, jnew, float(jmet["lr"]))
 
 
 @pytest.mark.parametrize("variant", ["microbatches=2", "compress"])
@@ -431,10 +458,9 @@ def test_compress_two_steps_bit_equal():
 def test_compress_scales_a_stacked_leaf_as_one():
     """The reference compresses each leaf of its stacked tree with one
     scale over all its layers; the port's layers are tensors of their
-    own, grouped by `convert.reference_leaf`: codes, decompressed
+    own, grouped by `param_names.reference_leaf`: codes, decompressed
     gradients and residuals bit-equal to the stacked reference's, though
     the layers' magnitudes differ 100-fold."""
-    from repro_torch.models.convert import reference_leaf
     rng = np.random.default_rng(8)
     stacked = rng.standard_normal((2, 4, 5)).astype(np.float32)
     stacked[1] *= 100
@@ -445,7 +471,7 @@ def test_compress_scales_a_stacked_leaf_as_one():
     grads = {"blocks.0.w": T(stacked[0]), "blocks.1.w": T(stacked[1]),
              "ln_f.scale": T(ln)}
     out, res = compression.compress_grads_with_feedback(
-        grads, compression.init_residuals(grads), leaf_of=reference_leaf)
+        grads, compression.init_residuals(grads))
     for i in range(2):
         assert np.array_equal(out[f"blocks.{i}.w"].numpy(),
                               np.asarray(jout["blocks"]["w"][i]))
@@ -453,10 +479,10 @@ def test_compress_scales_a_stacked_leaf_as_one():
                               np.asarray(jres["blocks"]["w"][i]))
     assert np.array_equal(out["ln_f.scale"].numpy(),
                           np.asarray(jout["ln_f"]["scale"]))
-    # per layer, as without leaf_of, layer 0 would keep 100x finer codes
-    alone, _ = compression.compress_grads_with_feedback(
-        grads, compression.init_residuals(grads))
-    assert not torch.equal(alone["blocks.0.w"], out["blocks.0.w"])
+    # on its own scale layer 0 would keep 100x finer codes
+    alone = compression.dequantize_int8(*compression.quantize_int8(
+        grads["blocks.0.w"]))
+    assert not torch.equal(alone, out["blocks.0.w"])
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b"])
@@ -504,11 +530,24 @@ def test_params_to_numpy_inverts_params_from_numpy(arch):
         params_to_numpy(cfg, {"embed.table": torch.zeros(2)})
 
 
-def test_use_flash_raises():
+@pytest.mark.parametrize("entry", ["make_train_step", "loss_and_grads",
+                                   "forward"])
+def test_use_flash_raises(entry):
+    """Train mode refuses the flash kernel at every entry point: it has
+    no backward, and its output would carry no gradient."""
     cfg = get_config("glm4-9b").reduced()
+    step_cfg = steps.StepConfig(use_flash=True, compute_dtype=torch.float32)
     with pytest.raises(ValueError, match="no backward"):
-        steps.make_train_step(cfg, optimizer.OptimizerConfig(),
-                              steps.StepConfig(use_flash=True))
+        if entry == "make_train_step":
+            steps.make_train_step(cfg, optimizer.OptimizerConfig(), step_cfg)
+            return
+        model = transformer.init_model(cfg, torch.Generator().manual_seed(6))
+        batch, _ = _batch(cfg)
+        if entry == "loss_and_grads":
+            steps.loss_and_grads(model, cfg, step_cfg, batch)
+        else:
+            transformer.forward(model, cfg, batch["tokens"], mode="train",
+                                use_flash=True, compute_dtype=torch.float32)
 
 
 def test_serving_builds_no_graph_after_training():
