@@ -118,10 +118,24 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      norm, weights, both moments), 2 microbatches against 1, and the
      int8 compression of the card's gradients (residuals within half a
      scale, bit-equal to the host function's);
-  6. the ``kernels`` line: matmul_int8 and flash_attention count-weighted
+  6. path K, after J's state is freed: ``repro_torch.train_lm.run`` for
+     minicpm-2b at its published widths through a checkpoint restart
+     (bf16, remat, J's batch, sequence and lr, the driver's data stream
+     and schedule), into a fresh temporary directory that needs 1.5x the
+     checkpoint (about 32.7 GB) free and is deleted at the end: run 1
+     takes steps 0-3 and saves the final state; every leaf on disk
+     bit-equal to that state on the card; the train step's loss of batch
+     3 on it (L*); run 2 resumes from the checkpoint (it must say so) and
+     its first loss equals L* within 1e-6 relative; every loss finite,
+     L* below batch 3's loss in run 1 (one update earlier), batch 3's
+     loss after run 2's first step (its replay) below L*, none of the
+     three kernels launched; step ms, tokens/s, peak bytes, the
+     checkpoint's bytes, save and restore seconds and GB/s and the free
+     disk;
+  7. the ``kernels`` line: matmul_int8 and flash_attention count-weighted
      over path A's plan (one decode step), ssd_scan over path B's (one
-     prompt pass); launches are summed over the main paths A-J;
-  7. the last line: ``{"ok": true, "device": {...}}``.
+     prompt pass); launches are summed over the main paths A-K;
+  8. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero before printing any result.
@@ -1079,6 +1093,216 @@ def _train_holds(torch, info: dict, cfg) -> dict:
     return summary
 
 
+#: Path K: minicpm-2b trained through a checkpoint restart at published
+#: widths by ``repro_torch.train_lm`` (bf16 compute, remat, the driver's
+#: WSD rule, J's batch, sequence and lr, its own data stream): run 1 takes
+#: steps 0..RESTART_K and saves once, the final state (``--ckpt-every
+#: RESTART_K``); run 2 (``--steps RESTART_K + 3``) resumes from it and
+#: replays batch RESTART_K, whose loss must equal the one the train step
+#: computes on run 1's final state (L*) within RESTART_TOL relative, and
+#: lie below that batch's loss in run 1, one update earlier; after run
+#: 2's replayed update the same batch's loss must lie below L*: the same
+#: data before and after a step, once in each run. (Every step draws a fresh batch of the
+#: Markov stream, whose 122,753-token transition 6 steps at lr <= 3e-4
+#: do not learn: run 2's last loss against run 1's first is a coin flip
+#: of +-0.01 nats, printed, not held.) The checkpoint (params, m and v
+#: in float32: about 32.7 GB) needs RESTART_ROOM times its bytes free on
+#: the temporary directory's disk.
+RESTART_K, RESTART_TOL, RESTART_ROOM = 3, 1e-6, 1.5
+
+
+class _Tee:
+    """Standard output copied into a buffer, for the lines a run prints."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, text):
+        self.lines.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def phase_path_k(torch, info: dict) -> tuple:
+    """minicpm-2b through ``train_lm.run`` at published widths: run 1
+    saves its final state; every leaf on disk bit-equal to that state on
+    the card (Hold 1); the train step's loss of batch RESTART_K on it,
+    L* (Hold 2); run 2 resumes from the checkpoint, says so, and its
+    first loss is L* (Hold 3); every loss finite, L* below the same
+    batch's loss in run 1, the batch's loss on run 2's state after its
+    first step below L*, no kernel launched (Hold 4). Prints step ms,
+    tokens/s, peak bytes, the checkpoint's bytes, save and restore
+    seconds and GB/s (the machine's disk and host link, not the card's
+    memory) and the free disk before the save. Returns (summary, launches), the
+    summary's ``seconds`` split by part."""
+    from repro_torch import train_lm
+    from repro_torch.checkpoint import checkpoint as ckpt_mod
+    from repro_torch.models.transformer import init_model
+    from repro_torch.train import steps
+    cfg = train_lm.configure(train_lm.build_parser().parse_args(
+        ["--arch", TRAIN_ARCH]))[0]
+    meta = init_model(cfg, None, device="meta")
+    n_params = sum(p.numel() for p in meta.parameters())
+    want = 3 * 4 * n_params            # params, m and v in float32
+    secs, io_s = {}, {"save": [], "load": []}
+    save, load = ckpt_mod.save_checkpoint, ckpt_mod.load_checkpoint
+
+    def timed_save(*a, **k):
+        t = time.monotonic()
+        out = save(*a, **k)
+        io_s["save"].append(time.monotonic() - t)
+        return out
+
+    def timed_load(*a, **k):
+        t = time.monotonic()
+        out = load(*a, **k)
+        torch.cuda.synchronize()
+        io_s["load"].append(time.monotonic() - t)
+        return out
+
+    ckpt_dir = tempfile.mkdtemp(prefix="miredo-ckpt-")
+    ckpt_mod.save_checkpoint, ckpt_mod.load_checkpoint = timed_save, \
+        timed_load
+    try:
+        free = shutil.disk_usage(ckpt_dir).free
+        require(free >= RESTART_ROOM * want,
+                f"K: {free:,} bytes free under {ckpt_dir}, the checkpoint "
+                f"needs {RESTART_ROOM} x {want:,}")
+        base = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+                str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--seed",
+                str(TRAIN_SEED), "--device", "cuda", "--log-every", "1",
+                "--ckpt-dir", ckpt_dir]
+        argv1 = base + ["--steps", str(RESTART_K + 1), "--ckpt-every",
+                        str(RESTART_K)]
+        argv2 = base + ["--steps", str(RESTART_K + 3), "--ckpt-every",
+                        str(100 * RESTART_K)]
+        ms = {1: [], 2: []}
+        peak = {}
+        torch.cuda.reset_peak_memory_stats()
+        t = time.monotonic()
+        (losses1, state), launches1 = drive(
+            torch, "K run 1", lambda: train_lm.run(
+                argv1, on_step=lambda s, loss, dt, st: ms[1].append(
+                    dt * 1e3)))
+        secs["run1"] = time.monotonic() - t
+        peak[1] = torch.cuda.max_memory_allocated()
+        saved = ckpt_mod.latest_step(ckpt_dir)
+        require(saved == RESTART_K and len(io_s["save"]) == 1,
+                f"K: saved {saved}, {len(io_s['save'])} saves")
+        n_bytes = ckpt_mod.checkpoint_bytes(ckpt_dir, saved)
+
+        t = time.monotonic()
+        differ = ckpt_mod.differing_leaves(ckpt_dir, state, saved)
+        n_leaves = len(ckpt_mod.reference_leaves(state))
+        secs["hold1"] = time.monotonic() - t
+        print(f"[main K] run 1: checkpoint of step {saved}, {n_leaves} "
+              f"leaves, {n_bytes:,} bytes; leaves differing from the live "
+              f"state on the card: {differ}", flush=True)
+        require(not differ, f"K: leaves on disk differ from the state: "
+                            f"{differ}")
+
+        t = time.monotonic()
+        args = train_lm.build_parser().parse_args(argv2)
+        _, _, step_cfg, data = train_lm.configure(args)
+        batch = train_lm.to_device(data.batch(RESTART_K), "cuda")
+
+        def batch_loss(st) -> float:
+            """The train step's loss of batch RESTART_K on ``st``."""
+            grads, loss, _ = steps.loss_and_grads(st.params, cfg, step_cfg,
+                                                  batch)
+            del grads
+            _free(torch)
+            return float(loss)
+
+        l_star = batch_loss(state)
+        del state
+        _free(torch)
+        secs["hold2"] = time.monotonic() - t
+
+        after = []                   # batch RESTART_K after its replay
+
+        def on_step2(s, loss, dt, st):
+            ms[2].append(dt * 1e3)
+            if s == RESTART_K:
+                t4 = time.monotonic()
+                after.append(batch_loss(st))
+                secs["hold4"] = time.monotonic() - t4
+
+        tee = _Tee(sys.stdout)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.monotonic()
+        with contextlib.redirect_stdout(tee):
+            (losses2, state), launches2 = drive(
+                torch, "K run 2", lambda: train_lm.run(argv2,
+                                                       on_step=on_step2))
+        secs["run2"] = time.monotonic() - t - secs.get("hold4", 0.0)
+        peak[2] = torch.cuda.max_memory_allocated()
+        del state
+        _free(torch)
+    finally:
+        ckpt_mod.save_checkpoint, ckpt_mod.load_checkpoint = save, load
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    resumed = f"[restore] resumed from step {RESTART_K}" in "".join(
+        tee.lines)
+    gap = abs(losses2[0] - l_star) / abs(l_star)
+    learned = losses1[RESTART_K] - l_star
+    replayed = l_star - after[0] if after else float("nan")
+    launches = {k: launches1[k] + launches2[k] for k in KERNELS}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_ms = {r: statistics.median(v[1:]) for r, v in ms.items()}
+    save_s, load_s = io_s["save"][0], io_s["load"][0]
+    print(f"[main K] {TRAIN_ARCH} through a restart at published widths "
+          f"({n_params:,} parameters), {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+          f"bf16, remat, lr {TRAIN_LR}: run 1 losses {losses1}; run 2 "
+          f"resumed from step {RESTART_K}: {resumed}, losses {losses2}; "
+          f"L* {l_star!r} against run 2's first {losses2[0]!r}, rel gap "
+          f"{gap:.3e} (tolerance {RESTART_TOL}); batch {RESTART_K} "
+          f"{learned:.4f} nats below its run-1 loss after its update, "
+          f"{after[0] if after else None!r} after run 2's replay of it, "
+          f"{replayed:.4f} nats below L*; run 2's last {losses2[-1] - losses1[0]:+.4f} from run 1's "
+          f"first (not held); launches {launches}", flush=True)
+    print(f"[main K] step ms run 1 {[round(v, 3) for v in ms[1]]}, run 2 "
+          f"{[round(v, 3) for v in ms[2]]}: median from the second step "
+          f"{step_ms[1]:.4f} / {step_ms[2]:.4f} ms, "
+          f"{tokens / step_ms[1] * 1e3:.1f} / {tokens / step_ms[2] * 1e3:.1f}"
+          f" tokens/s; peak {peak[1]:,} / {peak[2]:,} bytes allocated; card "
+          f"{info['nvidia_smi']}", flush=True)
+    print(f"[main K] checkpoint {n_bytes:,} bytes: save {save_s:.3f} s "
+          f"({n_bytes / save_s / 1e9:.3f} GB/s), restore {load_s:.3f} s "
+          f"({n_bytes / load_s / 1e9:.3f} GB/s): the machine's disk and "
+          f"host link, not the card; {free:,} bytes free before the save "
+          f"({free / n_bytes:.2f} x the checkpoint)", flush=True)
+    require(resumed and len(losses2) == 3,
+            f"K: run 2 did not resume from step {RESTART_K}")
+    require(gap <= RESTART_TOL,
+            f"K: run 2's first loss {losses2[0]} against L* {l_star}")
+    require(all(math.isfinite(v) for v in losses1 + losses2 + [l_star]),
+            f"K: a non-finite loss: {losses1} {losses2} {l_star}")
+    require(learned > 0,
+            f"K: batch {RESTART_K}'s loss {losses1[RESTART_K]} -> {l_star} "
+            f"after its update, not lower")
+    require(replayed > 0 and math.isfinite(after[0]),
+            f"K: batch {RESTART_K}'s loss {l_star} -> {after} after run 2's "
+            f"replay of it, not lower")
+    require(launches == dict.fromkeys(KERNELS, 0), f"K: launches {launches}")
+    summary = {"n_params": n_params, "losses_run1": losses1,
+               "losses_run2": losses2, "l_star": l_star, "rel_gap": gap,
+               "learned_nats": learned, "after_replay": after[0],
+               "replayed_nats": replayed,
+               "step_ms": ms, "step_ms_median": step_ms,
+               "tokens_per_s": {r: tokens / v * 1e3
+                                for r, v in step_ms.items()},
+               "peak_bytes": peak, "checkpoint_bytes": n_bytes,
+               "n_leaves": n_leaves, "save_s": save_s, "restore_s": load_s,
+               "save_gb_s": n_bytes / save_s / 1e9,
+               "restore_gb_s": n_bytes / load_s / 1e9,
+               "free_bytes_before": free,
+               "seconds": dict(secs, save=save_s, restore=load_s)}
+    return summary, launches
+
+
 def phase_path_e(torch, info: dict) -> tuple:
     """mamba2-1.3b served at its published widths. Its forward runs the
     plain SSD product, as the reference's does; beside it the path runs
@@ -1650,6 +1874,9 @@ def main() -> int:
     # the kernels line's times; its launches (none) join the line
     _free(torch)
     lives["J"], launches["J"] = timed("J", phase_path_j, torch, info)
+    lives["K"], launches["K"] = timed("K", phase_path_k, torch, info)
+    seconds.update({f"K {k}": round(v, 1)
+                    for k, v in lives["K"]["seconds"].items()})
     kernels = [kernel_entry("matmul_int8", mm, "A", launches),
                kernel_entry("flash_attention", fa, "A", launches),
                kernel_entry("ssd_scan", ssd, "B", launches)]

@@ -230,9 +230,12 @@ def optimize_network(layers: Sequence[wl.Layer], arch: CimArch | None = None,
                      verbose: bool = False) -> NetworkResult:
     """Optimize every layer of a network and aggregate latency/energy/EDP.
 
-    ``mesh`` is kept for signature parity with the reference and raises
-    ``NotImplementedError``: the mesh pipeline is not ported (ROADMAP
-    Queue A, the mesh).
+    ``mesh`` (a `mesh.MeshArch`, mutually exclusive with ``arch``) targets
+    a multi-chip mesh: ``n_chips > 1`` dispatches to
+    `mesh.optimize_mesh_network` (per-layer TP sharding + the (chip, core)
+    placement scheduler); a **1-chip mesh IS its chip** — the call
+    continues below on ``mesh.chip``, taking the single-chip path bit for
+    bit (the invariant `tests/test_mesh.py` pins).
 
     ``warm_starts`` maps `layer_cache_key` -> mapping JSON; for MIP modes
     each matching unique layer's solve receives that mapping as an extra
@@ -270,10 +273,18 @@ def optimize_network(layers: Sequence[wl.Layer], arch: CimArch | None = None,
     from repro_torch.core.formulation import FormulationConfig
 
     if mesh is not None:
-        # the reference's mesh pipeline (`core/mesh.py`) is not re-hosted
-        raise NotImplementedError(
-            "multi-chip mesh optimization is not ported (ROADMAP Queue A, "
-            "the mesh)")
+        assert arch is None, "pass either arch or mesh, not both"
+        if mesh.n_chips > 1:
+            from repro_torch.core.mesh import optimize_mesh_network
+            return optimize_mesh_network(
+                layers, mesh, mode, counts=counts, cfg=cfg,
+                total_budget_s=total_budget_s,
+                per_layer_cap_s=per_layer_cap_s, workers=workers,
+                cache=cache, use_cache=use_cache, schedule=schedule,
+                schedule_boundaries=schedule_boundaries,
+                warm_starts=warm_starts, portfolio=portfolio,
+                verbose=verbose)
+        arch = mesh.chip
     assert arch is not None, "either arch or mesh is required"
 
     t0 = time.monotonic()

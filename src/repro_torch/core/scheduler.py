@@ -621,7 +621,445 @@ def cross_check(schedule: Schedule, arch: CimArch, *,
     return (sum(accs) / len(accs) if accs else 1.0), len(accs)
 
 
-# The reference's mesh schedule (`MeshStagePlan` ... `cross_check_mesh`,
-# the (chip, core) placement over a `mesh.MeshArch`) is not copied: it
-# reaches `core/mesh.py`, which the port has not re-hosted (ROADMAP Queue
-# A, the mesh).
+# ---------------------------------------------------------------------------
+# Mesh schedule: one-hot (chip, core) placement over a MeshArch
+# ---------------------------------------------------------------------------
+# The single-chip machinery above generalizes to `mesh.MeshArch` one level
+# up (DESIGN.md §Mesh optimization): stages carry their *sub-layer* (the
+# per-chip shard the mesh record solved), replicate stages place one-hot on
+# a (chip, cores) pair, split stages occupy every chip symmetrically (the
+# shard is an SPMD decomposition — c cores on each chip), and the segment
+# cost adds two mesh terms the single-chip model has no concept of:
+# per-item shard communication (`comm_cycles`, inside t_i — it recurs every
+# item) and the inter-chip activation hop between adjacent stages hosted on
+# different chips (`xfer_cycles`, threaded into the exact item recursion
+# via `simulator.stream_finish_times`' xfer argument). Placement candidates
+# are judged by that exact charge — xfer included — so the placement MIP
+# never loses to the greedy water-filling fallback under the metric the
+# segment is billed with, the same discipline `_plan_segment` applies.
+# Weight program-ins of ALL chips serialize on one shared DRAM channel
+# (the conservative single-host-memory assumption `simulate_segment`
+# replays); per-chip residency capacity bounds what each chip holds.
+
+
+@dataclasses.dataclass
+class MeshStagePlan(StagePlan):
+    """One layer instance-group of a mesh segment. `weight_bytes` is the
+    PER-CHIP sub-layer footprint (the full layer's for replicate); `chip`
+    is the host placement (-1 = split stage, resident on every chip)."""
+
+    sub_key: str = ""           # structural key of the per-chip sub-layer
+    choice: str = "replicate"   # mesh.SHARD_CHOICES member
+    span_all: bool = False      # split stage: occupies all chips
+    n_active: int = 1           # chips computing (DRAM-load multiplier)
+    comm_cycles: float = 0.0    # per-item shard communication (in t_cycles)
+    out_bytes: int = 0          # per-item activation output (xfer volume)
+    chip: int = -1              # host chip (replicate) or -1 (split)
+    xfer_cycles: float = 0.0    # per-item hop from the upstream stage
+
+    @property
+    def total_load_bytes(self) -> int:
+        """DRAM bytes programmed across all chips holding this stage."""
+        return self.count * self.weight_bytes * self.n_active
+
+
+def _mesh_hosts(stages: Sequence[MeshStagePlan],
+                chips: Sequence[int]) -> list[int]:
+    """Activation host chip per stage: a split stage's traffic is anchored
+    at chip 0 by convention (its input broadcast/scatter originates there
+    and the gather/all-reduce result lands there — `mesh.shard_eval`)."""
+    return [g if g >= 0 else 0 for g in chips]
+
+
+def _mesh_exact(stages: Sequence[MeshStagePlan], chips: Sequence[int],
+                cores: Sequence[int], mesh, t_of) -> float:
+    """Exact makespan of the placed item stream at zero ready time — the
+    recursion `simulate_segment` replays, with the per-item inter-chip
+    activation hop between differently-hosted adjacent stages."""
+    from repro_torch.core.latency import link_transfer_cycles
+    from repro_torch.core.simulator import stream_finish_times
+
+    ts = [t_of(i, c) for i, c in enumerate(cores)]
+    counts = [st.count for st in stages]
+    if len(stages) == 1:
+        return counts[0] * ts[0]
+    hosts = _mesh_hosts(stages, chips)
+    xfer = [0.0] + [
+        link_transfer_cycles(stages[i - 1].out_bytes, mesh.link,
+                             mesh.chip_distance(hosts[i - 1], hosts[i]))
+        for i in range(1, len(stages))]
+    return max(stream_finish_times(counts, ts, [0.0] * len(ts), xfer))
+
+
+def _mesh_place_greedy(stages: Sequence[MeshStagePlan], mesh, n_cores: int,
+                       t_of) -> tuple[list[int], list[int]] | None:
+    """Water-filling placement: reserve every split stage on all chips,
+    place replicate stages (heaviest first) on the chip with the most free
+    macro bytes, then hand spare cores to whichever stage improves the
+    pipelined makespan most (`_allocate_greedy`'s multi-core jumps; a
+    split stage's grant consumes cores on EVERY chip). None when the
+    stages do not co-fit the mesh."""
+    n_chips = mesh.n_chips
+    cap = chip_macro_bytes(mesh.chip)
+    free_b = [float(cap)] * n_chips
+    free_c = [n_cores] * n_chips
+    chips = [-1] * len(stages)
+    for st in stages:
+        if st.span_all:
+            for g in range(n_chips):
+                free_b[g] -= st.load_bytes
+                free_c[g] -= st.c_min
+    if any(b < 0 for b in free_b) or any(c < 0 for c in free_c):
+        return None
+    order = sorted((i for i, st in enumerate(stages) if not st.span_all),
+                   key=lambda i: -stages[i].load_bytes)
+    for i in order:
+        st = stages[i]
+        cand = [g for g in range(n_chips)
+                if free_b[g] >= st.load_bytes and free_c[g] >= st.c_min]
+        if not cand:
+            return None
+        g = max(cand, key=lambda g: (free_b[g], -g))
+        chips[i] = g
+        free_b[g] -= st.load_bytes
+        free_c[g] -= st.c_min
+
+    alloc = [st.c_min for st in stages]
+    counts = [st.count for st in stages]
+
+    def obj(a: list[int]) -> float:
+        return _pipeline_compute([t_of(i, c) for i, c in enumerate(a)],
+                                 counts)
+
+    def spare_for(i: int) -> int:
+        return min(free_c) if stages[i].span_all else free_c[chips[i]]
+
+    cur = obj(alloc)
+    while True:
+        best = None                     # (obj, extra_cores, stage index)
+        for i in range(len(stages)):
+            for extra in range(1, spare_for(i) + 1):
+                trial = list(alloc)
+                trial[i] += extra
+                o = obj(trial)
+                if o < cur - 1e-9 and \
+                        (best is None or (o, extra) < best[:2]):
+                    best = (o, extra, i)
+        if best is None:
+            break
+        cur, extra, i = best
+        alloc[i] += extra
+        if stages[i].span_all:
+            for g in range(len(free_c)):
+                free_c[g] -= extra
+        else:
+            free_c[chips[i]] -= extra
+    return chips, alloc
+
+
+def _mesh_place_mip(stages: Sequence[MeshStagePlan], mesh, n_cores: int,
+                    t_of, time_limit_s: float = ALLOC_MIP_CAP_S
+                    ) -> tuple[list[int], list[int]] | None:
+    """Exact joint placement: the segment MIP generalized from one-hot
+    core choice (`_allocate_mip`) to one-hot **(chip, cores)** choice per
+    replicate stage — split stages keep a one-hot cores choice applied on
+    every chip — under per-chip core budgets, per-chip residency byte
+    capacity and the shared makespan epigraph. Returns None when the
+    solver yields nothing usable (the caller keeps the greedy placement)."""
+    from repro_torch.core.mip.model import LinExpr, MipModel
+
+    n_chips = mesh.n_chips
+    cap = chip_macro_bytes(mesh.chip)
+    cap_eff = float(cap) - sum(st.load_bytes for st in stages
+                               if st.span_all)
+    if cap_eff < 0:
+        return None
+    m = MipModel("mesh-alloc")
+    zero = LinExpr({}, 0.0)
+    sel: list[dict] = []                 # stage -> {option: Var}
+    for i, st in enumerate(stages):
+        crange = range(st.c_min, n_cores + 1)
+        if st.span_all:
+            opts = list(crange)
+        else:
+            opts = [(g, c) for g in range(n_chips) for c in crange]
+        if not opts:
+            return None
+        sel.append(m.add_choice(f"x[{i}]", opts))
+    for g in range(n_chips):
+        cores_g = zero
+        bytes_g = zero
+        for st, vs in zip(stages, sel):
+            if st.span_all:
+                cores_g = cores_g + sum((c * v for c, v in vs.items()),
+                                        zero)
+            else:
+                cores_g = cores_g + sum((c * v for (gg, c), v in vs.items()
+                                         if gg == g), zero)
+                bytes_g = bytes_g + sum(
+                    (float(st.load_bytes) * v for (gg, _), v in vs.items()
+                     if gg == g), zero)
+        m.add_le(cores_g, float(n_cores))
+        m.add_le(bytes_g, cap_eff)
+    z = m.add_var("makespan", 0.0)
+    fill = zero
+
+    def cores_of(opt):
+        return opt if isinstance(opt, int) else opt[1]
+
+    for i, (st, vs) in enumerate(zip(stages, sel)):
+        m.add_ge(z - sum((((st.count - 1) * t_of(i, cores_of(o))) * v
+                          for o, v in vs.items()), zero), 0.0)
+        fill = fill + sum((t_of(i, cores_of(o)) * v
+                           for o, v in vs.items()), zero)
+    m.minimize(z + fill)
+    try:
+        sol = m.solve(time_limit_s=time_limit_s, mip_rel_gap=0.0)
+    except Exception:
+        return None
+    if not sol.ok:
+        return None
+    chips, alloc = [], []
+    for st, vs in zip(stages, sel):
+        o = max(vs, key=lambda o: sol[vs[o]])
+        if sol[vs[o]] < 0.5:
+            return None
+        if st.span_all:
+            chips.append(-1)
+            alloc.append(o)
+        else:
+            chips.append(o[0])
+            alloc.append(o[1])
+    # re-verify the budgets the way _allocate_mip re-verifies its core sum
+    for g in range(n_chips):
+        used_c = sum(c for st, gg, c in zip(stages, chips, alloc)
+                     if st.span_all or gg == g)
+        used_b = sum(st.load_bytes for st, gg in zip(stages, chips)
+                     if not st.span_all and gg == g)
+        if used_c > n_cores or used_b > cap_eff + 1e-6:
+            return None
+    return chips, alloc
+
+
+def _plan_mesh_segment(stages: list[MeshStagePlan], mesh,
+                       scaling: CoreScaling, *, use_mip: bool,
+                       mip_time_limit_s: float,
+                       layers_of: dict[str, wl.Layer]) -> SegmentPlan:
+    """Mesh counterpart of `_plan_segment`: same SegmentPlan contract
+    (min(pipelined, serial) charging, exact-judged MIP-over-greedy), with
+    placement instead of bare core allocation. A multi-stage run that does
+    not co-fit the mesh simply stays serial (equivalent to the DP's
+    singleton split, never wrong)."""
+    chip = mesh.chip
+    ax = core_axis(chip)
+    n_cores = ax.size if ax is not None else 1
+    seg = SegmentPlan(stages=stages,
+                      serial_cycles=sum(st.serial_cycles for st in stages))
+    if any(not st.resident or st.c_min > n_cores for st in stages):
+        assert len(stages) == 1, "non-resident stages must be singletons"
+        return seg
+
+    def t_of(i: int, c: int) -> float:
+        st = stages[i]
+        return st.resident_cycles * scaling.factor(
+            layers_of[st.sub_key], st.sub_key, c) + st.comm_cycles
+
+    placed = _mesh_place_greedy(stages, mesh, n_cores, t_of)
+    if placed is None:
+        return seg                                  # does not co-fit: serial
+    allocator = "greedy"
+
+    def exact_of(p: tuple[list[int], list[int]]) -> float:
+        return _mesh_exact(stages, p[0], p[1], mesh, t_of)
+
+    if use_mip and len(stages) > 1:
+        mip = _mesh_place_mip(stages, mesh, n_cores, t_of,
+                              time_limit_s=mip_time_limit_s)
+        if mip is not None and exact_of(mip) <= exact_of(placed) + 1e-9:
+            placed, allocator = mip, "mip"
+    chips, alloc = placed
+    from repro_torch.core.latency import link_transfer_cycles
+    hosts = _mesh_hosts(stages, chips)
+    bw = chip.level(0).bytes_per_cycle()
+    load = 0.0
+    for i, (st, g, c) in enumerate(zip(stages, chips, alloc)):
+        st.chip = g
+        st.cores = c
+        st.t_cycles = t_of(i, c)
+        st.xfer_cycles = 0.0 if i == 0 else link_transfer_cycles(
+            stages[i - 1].out_bytes, mesh.link,
+            mesh.chip_distance(hosts[i - 1], hosts[i]))
+        load += math.ceil(st.total_load_bytes / bw)
+    seg.load_cycles = load + chip.mode_switch_cycles
+    seg.compute_cycles = exact_of(placed)
+    seg.allocator = allocator
+    if seg.pipelined_cycles < seg.serial_cycles:
+        seg.mode = "pipelined"
+    return seg
+
+
+def schedule_mesh(layers: Sequence, mesh, *,
+                  boundaries: Sequence[int] | None = None,
+                  use_mip: bool = True,
+                  mip_time_limit_s: float = ALLOC_MIP_CAP_S,
+                  verbose: bool = False) -> Schedule:
+    """Schedule a network's *mesh* records (`mesh.optimize_mesh_network`)
+    onto a `mesh.MeshArch` — `schedule_network` one level up. A 1-chip
+    mesh IS the chip: delegate, bit for bit.
+
+    Stage basis mirrors `schedule_network` exactly, applied to each
+    record's **sub-layer** (reconstructed from the record's shard
+    decomposition): residency/fill from the sub-mapping on ``mesh.chip``,
+    the greedy weight-stationary swap when the record's own mapping
+    streams weights, core-sensitivity via the chip's `CoreScaling`. On
+    top, each stage's per-item latency carries its shard communication
+    (``+ comm_cycles``, not core-scaled — link time does not shrink with
+    cores) and segments pay per-item activation hops between
+    differently-hosted adjacent stages."""
+    from repro_torch.core.mesh import (REPLICATE, out_bytes_per_elem,
+                                 shard_sub_layer)
+    from repro_torch.core.arch import OUTPUT
+
+    if mesh.n_chips <= 1:
+        return schedule_network(layers, mesh.chip, boundaries=boundaries,
+                                use_mip=use_mip,
+                                mip_time_limit_s=mip_time_limit_s,
+                                verbose=verbose)
+    chip = mesh.chip
+    ax = core_axis(chip)
+    n_cores = ax.size if ax is not None else 1
+    core_bytes = chip_macro_bytes(chip) // max(n_cores, 1)
+    scaling = CoreScaling(chip)
+
+    from repro_torch.core.baselines import greedy_mapping
+    from repro_torch.core.energy import evaluate_edp
+
+    stages: list[MeshStagePlan] = []
+    layers_of: dict[str, wl.Layer] = {}
+    # full-layer key -> (resident, resident_cycles, basis, per-instance
+    # energy delta) — the shard choice is a function of the full-layer key
+    # within one mesh solve, so the memo stays keyed like schedule_network's
+    basis_of: dict[str, tuple[bool, float, str, float]] = {}
+    for lr in layers:
+        rec = lr.record
+        shard = rec.get("shard") or {}
+        choice = shard.get("choice", REPLICATE)
+        n_active = int(shard.get("n_active", 1))
+        sub = shard_sub_layer(lr.layer, choice, mesh.n_chips)
+        sub_key = layer_cache_key(sub)
+        layers_of.setdefault(sub_key, sub)
+        chip_cycles = float(rec.get("chip_cycles", rec["cycles"]))
+        chip_energy = float(rec.get("chip_energy_pj", rec["energy_pj"]))
+        comm = float(rec.get("comm_cycles", 0.0))
+        if lr.key not in basis_of and sub.weight_written:
+            # produced stationary operand (wGrad shard): never resident
+            basis_of[lr.key] = (False, 0.0, "record", 0.0)
+        if lr.key not in basis_of:
+            mp = mapping_from_json(rec["mapping"])
+            resident, fill = weight_residency(mp, sub, chip)
+            if resident:
+                basis_of[lr.key] = (True, max(chip_cycles - fill, 1.0),
+                                    "record", 0.0)
+            else:
+                gmp = greedy_mapping(sub, chip)
+                g_res, g_fill = weight_residency(gmp, sub, chip)
+                if g_res:
+                    g = evaluate_edp(gmp, sub, chip)
+                    basis_of[lr.key] = (
+                        True, max(g.latency.total_cycles - g_fill, 1.0),
+                        "greedy",
+                        n_active * (g.energy.total_pj - chip_energy))
+                else:
+                    basis_of[lr.key] = (False, 0.0, "record", 0.0)
+        resident, rc, basis, de = basis_of[lr.key]
+        w = weight_bytes(sub)
+        c_min = max(1, math.ceil(lr.count * w / max(core_bytes, 1)))
+        stages.append(MeshStagePlan(
+            name=lr.layer.name, key=lr.key, count=int(lr.count),
+            weight_bytes=w,
+            serial_cycles=lr.count * rec["cycles"],
+            resident_cycles=rc, resident=resident, basis=basis,
+            energy_delta_pj=lr.count * de, c_min=c_min,
+            sub_key=sub_key, choice=choice,
+            span_all=choice != REPLICATE, n_active=n_active,
+            comm_cycles=comm,
+            out_bytes=lr.layer.operand_elems(OUTPUT) *
+            out_bytes_per_elem(lr.layer)))
+
+    # ---- DP over contiguous splits (schedule_network's, mesh budgets) -----
+    n = len(stages)
+    n_chips = mesh.n_chips
+    best = [0.0] + [math.inf] * n
+    cut = [0] * (n + 1)
+    cuts_inside = sorted(b for b in set(boundaries or ()) if 0 < b < n)
+
+    def run_cost(i: int, j: int) -> float:
+        if any(i < b < j for b in cuts_inside):
+            return math.inf           # independent streams never co-pack
+        sub = stages[i:j]
+        if len(sub) > 1 and (
+                any(not st.resident for st in sub) or
+                sum(st.c_min * (n_chips if st.span_all else 1)
+                    for st in sub) > n_chips * n_cores or
+                sum(st.count for st in sub) > ITEM_FLOW_CAP):
+            return math.inf
+        seg = _plan_mesh_segment([dataclasses.replace(st) for st in sub],
+                                 mesh, scaling, use_mip=False,
+                                 mip_time_limit_s=mip_time_limit_s,
+                                 layers_of=layers_of)
+        return seg.cycles
+
+    for j in range(1, n + 1):
+        for i in range(j - 1, -1, -1):
+            if j - i > n_chips * n_cores:   # each stage needs >= 1 core
+                break
+            c = run_cost(i, j)
+            if best[i] + c < best[j]:
+                best[j], cut[j] = best[i] + c, i
+            if c == math.inf and j - i > 1:
+                break                  # longer runs only get harder
+
+    bounds: list[tuple[int, int]] = []
+    j = n
+    while j > 0:
+        bounds.append((cut[j], j))
+        j = cut[j]
+    bounds.reverse()
+    segments = [
+        _plan_mesh_segment(stages[i:j], mesh, scaling, use_mip=use_mip,
+                           mip_time_limit_s=mip_time_limit_s,
+                           layers_of=layers_of)
+        for i, j in bounds]
+
+    serial = sum(st.serial_cycles for st in stages)
+    scheduled = sum(seg.cycles for seg in segments)
+    if verbose:
+        packed = sum(seg.packed for seg in segments)
+        print(f"[scheduler/{mesh.name}] {n} stages -> {len(segments)} "
+              f"segments ({packed} packed, {n_chips} chips): "
+              f"{serial:.4g} serial -> {scheduled:.4g} scheduled cycles")
+    return Schedule(arch_name=mesh.name, segments=segments,
+                    serial_cycles=serial, scheduled_cycles=scheduled)
+
+
+def cross_check_mesh(schedule: Schedule, mesh, *,
+                     max_items: int = 100_000) -> tuple[float, int]:
+    """`cross_check` for mesh schedules: replay every pipelined segment
+    through `simulator.simulate_segment` in network mode — total DRAM
+    load bytes across all chips holding each stage, per-item inter-chip
+    activation hops as the 4th stage element — and report the same
+    Fig. 4(a) mean-accuracy metric."""
+    from repro_torch.core.simulator import simulate_segment
+
+    accs = []
+    for seg in schedule.segments:
+        if seg.mode != "pipelined":
+            continue
+        if sum(st.count for st in seg.stages) > max_items:
+            continue
+        sim = simulate_segment(
+            [(st.count, st.t_cycles, st.total_load_bytes, st.xfer_cycles)
+             for st in seg.stages], mesh.chip)
+        accs.append(1.0 - abs(seg.pipelined_cycles - sim.total_cycles) /
+                    max(sim.total_cycles, 1.0))
+    return (sum(accs) / len(accs) if accs else 1.0), len(accs)

@@ -846,3 +846,68 @@ def test_compression_card_vs_host_bit_equal(cuda):
         for k in shapes:
             assert torch.equal(c_out[k].cpu(), h_out[k]), k
             assert torch.equal(card_res[k].cpu(), host_res[k]), k
+
+
+def _card_state(cuda, seed):
+    """A reduced minicpm-2b TrainState on the card with residuals and
+    every moment and residual filled with its own numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.train import steps
+    cfg = get_config("minicpm-2b").reduced()
+    st = steps.init_train_state(seed, cfg, steps.StepConfig(
+        compute_dtype=torch.float32, compress_pod_grads=True), device=cuda)
+    g = _gen(seed)
+    with torch.no_grad():
+        for tree in (st.opt.m, st.opt.v, st.residuals):
+            for t in tree.values():
+                t.copy_(torch.randn(t.shape, device=cuda, generator=g))
+        st.opt.step.fill_(seed)
+    return cfg, st
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """Path K's checkpoint on the card: a TrainState saved leaf by leaf
+    from the card equals the file (`differing_leaves`), and loads into
+    another state on the card in place, every tensor bit-equal and still
+    on the card, the seed read back."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    _, st = _card_state(cuda, 3)
+    ckpt.save_checkpoint(str(tmp_path), 3, st)
+    assert ckpt.differing_leaves(str(tmp_path), st, 3) == []
+    _, other = _card_state(cuda, 4)
+    assert ckpt.differing_leaves(str(tmp_path), other, 3)
+    got, step, _ = ckpt.load_checkpoint(str(tmp_path), other)
+    assert step == 3 and got.rng == 3 and got.params is other.params
+    assert int(got.opt.step) == 3
+    pairs = [(st.params.named_parameters(), got.params.named_parameters())]
+    pairs += [(getattr(st.opt, k).items(), getattr(got.opt, k).items())
+              for k in ("m", "v")]
+    pairs.append((st.residuals.items(), got.residuals.items()))
+    for want, have in pairs:
+        for (n, a), (_, b) in zip(want, have):
+            assert b.device.type == "cuda" and torch.equal(a, b), n
+
+
+def test_train_lm_restart_on_card(cuda, tmp_path, capsys):
+    """Path K at reduced widths: ``train_lm`` on the card through a
+    restart; the resumed run's first loss is the train step's loss of
+    the replayed batch on the saved state."""
+    from repro_torch import train_lm
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.train import steps
+    base = ["--reduced", "--batch", "4", "--seq", "32", "--ckpt-dir",
+            str(tmp_path)]
+    losses1, state = train_lm.run(base + ["--steps", "4", "--ckpt-every",
+                                          "3"])
+    assert ckpt.latest_step(str(tmp_path)) == 3
+    assert ckpt.differing_leaves(str(tmp_path), state, 3) == []
+    args = train_lm.build_parser().parse_args(base + ["--steps", "6"])
+    cfg, _, step_cfg, data = train_lm.configure(args)
+    _, l_star, _ = steps.loss_and_grads(
+        state.params, cfg, step_cfg, train_lm.to_device(data.batch(3), cuda))
+    del state
+    losses2, state = train_lm.run(base + ["--steps", "6", "--ckpt-every",
+                                          "100"])
+    assert "[restore] resumed from step 3" in capsys.readouterr().out
+    assert len(losses2) == 3 and int(state.opt.step) == 7
+    assert losses2[0] == pytest.approx(float(l_star), rel=1e-6, abs=0)

@@ -2,7 +2,8 @@
 `chip_smoke.py`, imports JAX, the JAX package or its benchmarks, and the
 reduced slices (`serve_lm`, `exec_lm` over mamba2-1.3b, ``python -m
 repro_torch.serve_lm --live`` for glm4-9b, mamba2-1.3b and
-qwen2-moe-a2.7b, ``serve_lm --traffic``, and the train step) run in a
+qwen2-moe-a2.7b, ``serve_lm --traffic``, the train step, `train_lm`
+through a restart and `optimize_network` on a 2-chip mesh) run in a
 process where none of them can be imported."""
 
 import ast
@@ -143,3 +144,41 @@ def test_train_step_runs_with_jax_and_reference_blocked(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "ISOLATED-OK" in res.stdout
+
+
+def test_train_driver_and_mesh_run_with_jax_and_reference_blocked(tmp_path):
+    """``train_lm`` (reduced minicpm-2b on the CPU) through a checkpoint
+    restart, and ``optimize_network`` on a 2-chip mesh (greedy), with
+    ``jax`` and ``repro`` blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = sys.modules['repro'] = None\n"
+        "sys.modules['benchmarks'] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from repro_torch import train_lm\n"
+        "argv = ['--reduced', '--device', 'cpu', '--batch', '2', '--seq',\n"
+        "        '8', '--ckpt-dir', sys.argv[1], '--ckpt-every', '2']\n"
+        "l1, _ = train_lm.run(argv + ['--steps', '3'])\n"
+        "l2, st = train_lm.run(argv + ['--steps', '5'])\n"
+        "assert len(l1) == 3 and len(l2) == 3 and int(st.opt.step) == 6\n"
+        "from repro_torch.core import workload as wl\n"
+        "from repro_torch.core.arch import default_arch\n"
+        "from repro_torch.core.mesh import make_mesh\n"
+        "from repro_torch.core.network import optimize_network\n"
+        "layers = [wl.gemm('a', 8, 16, 32), wl.gemm('b', 8, 32, 16)]\n"
+        "net = optimize_network(layers, None, 'greedy',\n"
+        "                       mesh=make_mesh(default_arch(), 2),\n"
+        "                       use_cache=False, workers=1)\n"
+        "assert all('shard' in lr.record for lr in net.layers)\n"
+        "assert net.scheduled['cycles'] > 0\n"
+        "assert not any(m.split('.')[0] in ('jax', 'repro', 'benchmarks')\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ISOLATED-OK')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path / "ck")],
+                         env=env, cwd=tmp_path, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "ISOLATED-OK" in res.stdout
+    assert "[restore] resumed from step 2" in res.stdout

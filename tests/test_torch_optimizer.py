@@ -116,10 +116,34 @@ def test_records_written_by_reference_are_port_cache_hits(tmp_path,
 
 
 def test_mesh_argument_is_not_ported():
-    work = extract_workload(*_pair("glm4-9b", "decode")[0])
-    with pytest.raises(NotImplementedError, match="Queue A, the mesh"):
-        optimize_network(list(work.layers), None, "greedy", mesh=object(),
-                         use_cache=False)
+    """The name is kept from when ``mesh=`` raised; the mesh pipeline is
+    ported now, and ``mesh=`` gives the reference's result: reduced
+    glm4-9b decode, greedy, on a 1-chip mesh (its chip, bit for bit) and
+    a 2-chip mesh (sharded records and the (chip, core) schedule)."""
+    from repro.core.mesh import make_mesh as ref_make_mesh
+    from repro_torch.core.mesh import make_mesh
+    (cfg, spec), (rcfg, rspec) = _pair("glm4-9b", "decode")
+    work = extract_workload(cfg, spec)
+    ref = ref_frontend.extract_workload(rcfg, rspec)
+    for n_chips in (1, 2):
+        net = optimize_network(list(work.layers), None, "greedy",
+                               mesh=make_mesh(default_arch(), n_chips),
+                               counts=list(work.counts), use_cache=False,
+                               workers=1)
+        rnet = ref_network.optimize_network(
+            list(ref.layers), None, "greedy",
+            mesh=ref_make_mesh(ref_default_arch(), n_chips),
+            counts=list(ref.counts), use_cache=False, workers=1)
+        assert net.arch_name == rnet.arch_name
+        assert [a.record for a in net.layers] == \
+            [b.record for b in rnet.layers]
+        assert net.totals == rnet.totals
+        assert net.scheduled == rnet.scheduled
+        assert net.schedule.scheduled_cycles == rnet.schedule.scheduled_cycles
+        assert [seg.mode for seg in net.schedule.segments] == \
+            [seg.mode for seg in rnet.schedule.segments]
+        assert all(("shard" in a.record) == (n_chips > 1)
+                   for a in net.layers)
 
 
 def test_batched_scorer_numpy_only():
