@@ -132,10 +132,28 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      three kernels launched; step ms, tokens/s, peak bytes, the
      checkpoint's bytes, save and restore seconds and GB/s and the free
      disk;
-  7. the ``kernels`` line: matmul_int8 and flash_attention count-weighted
+  7. path L, after K: ``[scorer]`` the batched scorer
+     (`core.latency_batched`) over `baselines.heuristic_search`'s pools of
+     SCORER_POOL mappings (SCORER_POOLS: path A's ffn_up ungated, path
+     B's ssd_s_chunk gated), the NumPy loop on the host against
+     ``backend="torch"`` (float64) on the card: cycles, energy, EDP,
+     idealized time and feasibility bit-equal, ms of each; the search's
+     winner and cost from each backend's scores of the gated pool equal
+     and chosen among its feasible rows; ``[bridge mip]`` every unique GEMM shape of paths A and B
+     through `gpu_bridge.select_matmul_blocks` (a ``fallback`` fails the
+     run), one matmul_int8 launch at each pick bit-equal to the plain
+     version at unit scales (these are L's counted launches), then within
+     NUMERICS_TOL with real scales, timed beside phase 4's mapping-
+     derived pick, and the Spearman of the MIP's estimates against the
+     times (a finding); ``[plan]`` / ``[dryrun]`` ``python -m
+     repro_torch.launch.dryrun`` for glm4-9b ``decode_32k`` on the
+     single-pod mesh in a subprocess (the fake process group): exit 0,
+     status ok, flops counted (no op without a meta kernel), per-device parameter and KV-cache GB against the card's
+     80 GB, and the roofline terms;
+  8. the ``kernels`` line: matmul_int8 and flash_attention count-weighted
      over path A's plan (one decode step), ssd_scan over path B's (one
-     prompt pass); launches are summed over the main paths A-K;
-  8. the last line: ``{"ok": true, "device": {...}}``.
+     prompt pass); launches are summed over the main paths A-L;
+  9. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero before printing any result.
@@ -1303,6 +1321,260 @@ def phase_path_k(torch, info: dict) -> tuple:
     return summary, launches
 
 
+#: Path L's scorer pools: `baselines.heuristic_search`'s candidates at
+#: this budget for (pack, arch, shape, op). No row of path A's ffn_up pool
+#: passes eq. 9, so only the ungated pack runs the recursion on it; about
+#: a quarter of path B's ssd_s_chunk pool is feasible, so its gated pack
+#: (the scorer's default) scores real rows and decides the search's
+#: winner.
+SCORER_POOL = 65_536
+SCORER_POOLS = (("ungated", "glm4-9b", "decode_32k", "ffn_up"),
+                ("gated", "mamba2-1.3b", "prefill_32k", "ssd_s_chunk"))
+SCORE_FIELDS = ("cycles", "energy_pj", "edp", "idealized", "feasible")
+
+
+def _median_ms(fn, reps: int) -> float:
+    """Median wall time of ``fn`` in ms; ``fn`` returns host arrays (the
+    torch backend copies its results back, so each call has synchronised
+    with the card before it returns)."""
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def _path_l_scorer(torch, info: dict) -> dict:
+    """``[scorer]``: the batched scorer's NumPy loop on the host against its
+    torch backend (float64) on the card, over heuristic_search's pools of
+    SCORER_POOL mappings (`SCORER_POOLS`): cycles, energy, EDP, idealized
+    time and feasibility bit-equal; then the search's choice
+    (`baselines.pick_winner`, ranked by the idealized time and by the
+    cycles) from each backend's scores of the gated pool: equal, and from
+    its feasible rows, not the greedy fallback."""
+    import numpy as np
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core import baselines
+    from repro_torch.core import latency_batched as lb
+    from repro_torch.core.arch import default_arch
+    from repro_torch.core.frontend import extract_workload
+    arch = default_arch()
+    out = {}
+    for label, arch_id, shape, op in SCORER_POOLS:
+        gated = label == "gated"
+        layer = next(l for l in extract_workload(
+            get_config(arch_id), SHAPES[shape]).layers
+            if l.name.rsplit(".", 1)[-1] == op)
+        t = time.monotonic()
+        pool = baselines.candidate_pool(layer, arch, budget=SCORER_POOL)
+        sample_s = time.monotonic() - t
+        require(len(pool) >= 65_536, f"L: pool of {len(pool)}")
+        t = time.monotonic()
+        pb = lb.pack(pool, layer, arch, need=lb.ALL_NEEDS if gated
+                     else ("latency", "energy", "ideal"))
+        pack_s = time.monotonic() - t
+        scores = {"numpy": lb.evaluate_batch(pb, backend="numpy"),
+                  "torch": lb.evaluate_batch(pb, backend="torch",
+                                             device="cuda")}
+        host, card = scores["numpy"], scores["torch"]
+        for f in SCORE_FIELDS:
+            a, b = getattr(host, f), getattr(card, f)
+            require((a is None and b is None) or (
+                a.dtype == b.dtype and np.array_equal(a, b)),
+                f"L: scorer {label} {f} differs between numpy and torch")
+        finite = int(np.isfinite(host.cycles).sum())
+        ms = {"numpy": _median_ms(lambda: lb.evaluate_batch(
+                  pb, backend="numpy"), 3),
+              "torch": _median_ms(lambda: lb.evaluate_batch(
+                  pb, backend="torch", device="cuda"), 5)}
+        row = {"layer": layer.name, "pool": len(pool), "sample_s": sample_s,
+               "pack_s": pack_s, "ms": ms, "slots": pb.nf.shape[1],
+               "feasible": int(host.feasible.sum())
+               if host.feasible is not None else None,
+               "finite_cycles": finite}
+        print(f"[scorer] {layer.name} pool {len(pool)} ({label}, "
+              f"{row['slots']} slots, {finite} finite cycles, "
+              f"{row['feasible']} feasible): numpy {ms['numpy']:.3f} ms, "
+              f"torch on the card {ms['torch']:.3f} ms; cycles, energy, "
+              f"EDP, idealized and feasibility bit-equal; sampling "
+              f"{sample_s:.1f} s, packing {pack_s:.1f} s; card "
+              f"{info['nvidia_smi']}", flush=True)
+        if gated:
+            row["winner"] = {}
+            for accurate in (False, True):
+                a, b = (baselines.pick_winner(pool, scores[k], layer, arch,
+                                              accurate=accurate)
+                        for k in ("numpy", "torch"))
+                by = "cycles" if accurate else "idealized"
+                require(a == b, f"L: heuristic_search winners by {by} "
+                        f"differ: {a} vs {b}")
+                require(a.n_feasible > 0, f"L: no feasible row in "
+                        f"{layer.name}'s pool")
+                row["winner"][by] = {
+                    "chosen_by_cost": a.chosen_by_cost,
+                    "eval_latency": a.eval_latency,
+                    "n_feasible": a.n_feasible, "n_sampled": a.n_sampled}
+                print(f"[scorer] heuristic_search winner by {by} equal on "
+                      f"both backends: cost {a.chosen_by_cost}, latency "
+                      f"{a.eval_latency}, {a.n_feasible} of {a.n_sampled} "
+                      f"feasible", flush=True)
+        out[label] = row
+    return out
+
+
+def _path_l_bridge(torch, info: dict, mm_rows: list[dict], timer) -> tuple:
+    """``[bridge mip]``: every unique GEMM shape of paths A and B (phase 4's
+    matmul rows) through `gpu_bridge.select_matmul_blocks`, then
+    matmul_int8 at the pick. The picks and one launch each are path L's
+    main path (counters zeroed around them); each launch is held
+    bit-equal to the plain version at unit scales there. Then, outside
+    the count, a launch with real scales within NUMERICS_TOL and the
+    pick's time beside the mapping-derived pick's from phase 4."""
+    from repro_torch.core.executor import NUMERICS_TOL, spearman
+    from repro_torch.core.gpu_bridge import select_matmul_blocks
+    from repro_torch.kernels.matmul_int8 import kernel as mm_kernel
+    from repro_torch.kernels.matmul_int8.ref import matmul_int8_ref
+    mapped: dict = {}
+    for r in mm_rows:
+        if r["path"] in ("A", "B"):
+            mapped.setdefault(tuple(r["shape"]), r)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+
+    def main_path():
+        picks = {}
+        for shape in mapped:
+            m, k, n = shape
+            t = time.perf_counter()
+            c = select_matmul_blocks(m, k, n)
+            solve_ms = (time.perf_counter() - t) * 1e3
+            require(c.status != "fallback", f"L: the bridge MIP fell back "
+                    f"at {shape}: {c}")
+            x = torch.randint(-127, 128, (m, k), dtype=torch.int8,
+                              device="cuda", generator=g)
+            w = torch.randint(-127, 128, (k, n), dtype=torch.int8,
+                              device="cuda", generator=g)
+            one_m = torch.ones(m, device="cuda")
+            one_n = torch.ones(n, device="cuda")
+            out = mm_kernel.matmul_int8(x, w, one_m, one_n, bm=c.bm,
+                                        bk=c.bk, bn=c.bn,
+                                        out_dtype=torch.float32)
+            require(torch.equal(out, matmul_int8_ref(
+                x, w, one_m, one_n, torch.float32)),
+                f"L: matmul_int8 at the MIP's pick {(c.bm, c.bk, c.bn)} "
+                f"differs from the plain version at {shape}")
+            picks[shape] = (c, solve_ms, x, w)
+            del out
+        return picks
+
+    picks, launches = drive(torch, "L", main_path)
+    rows = []
+    for shape, (c, solve_ms, x, w) in picks.items():
+        m, k, n = shape
+        xs = torch.rand(m, device="cuda", generator=g) / 127
+        ws = torch.rand(n, device="cuda", generator=g) / 127
+        kern = lambda: mm_kernel.matmul_int8(x, w, xs, ws, bm=c.bm, bk=c.bk,
+                                             bn=c.bn,
+                                             out_dtype=torch.float32)
+        out, ref = kern(), matmul_int8_ref(x, w, xs, ws, torch.float32)
+        rel = float((out.double() - ref.double()).norm() /
+                    ref.double().norm())
+        require(rel <= NUMERICS_TOL["matmul_int8"],
+                f"L: matmul_int8 at {shape} pick rel err {rel}")
+        mrow = mapped[shape]
+        row = {"shape": shape, "pick": (c.bm, c.bk, c.bn),
+               "status": c.status, "smem_bytes": c.smem_bytes,
+               "est_ms": c.est_seconds * 1e3, "solve_ms": solve_ms,
+               "rel_err": rel, "ms": timer(kern),
+               "mapping_path": mrow["path"], "mapping_op": mrow["op"],
+               "mapping_blocks": tuple(mrow["blocks"]),
+               "mapping_ms": mrow["ms"]}
+        rows.append(row)
+        print(f"[bridge mip] {json.dumps(row)}", flush=True)
+        del out, ref
+    picks.clear()
+    torch.cuda.empty_cache()
+    rho = spearman([r["est_ms"] for r in rows], [r["ms"] for r in rows])
+    print(f"[bridge mip] {len(rows)} shapes; spearman of the MIP's "
+          f"estimate against the measured time at its pick {rho} (a "
+          f"finding, not a hold); card {info['nvidia_smi']}", flush=True)
+    return {"rows": rows, "spearman": rho}, launches
+
+
+def _path_l_dryrun(info: dict) -> dict:
+    """``[plan]`` / ``[dryrun]``: `launch.dryrun` for glm4-9b decode_32k on
+    the single-pod mesh, in a subprocess (the fake process group is
+    process-wide): exit 0 and status ok; per-device parameter and cache
+    GB against the card's memory; `roofline_terms`."""
+    from repro_torch.launch.mesh import HBM_BYTES
+    from repro_torch.launch.roofline import roofline_terms
+    with tempfile.TemporaryDirectory(prefix="miredo-dryrun-") as out:
+        t = time.monotonic()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "glm4-9b", "--shape", "decode_32k", "--out", out],
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            capture_output=True, text=True, timeout=600)
+        secs = time.monotonic() - t
+        require(res.returncode == 0, f"L: dryrun exit {res.returncode}: "
+                f"{res.stdout[-1500:]} {res.stderr[-1500:]}")
+        rec = json.loads((Path(out) / "glm4-9b__decode_32k__single.json")
+                         .read_text())
+    require(rec["status"] == "ok", f"L: dryrun status {rec['status']}")
+    require(rec["flops_error"] is None and rec["flops_global"] > 0,
+            f"L: dryrun counted no flops: {rec['flops_error']}")
+    by = rec["bytes_per_device_by_kind"]
+    per_dev = rec["bytes_per_device"]
+    terms = roofline_terms(rec)
+    summary = {"seconds": secs, "mesh": rec["mesh"],
+               "params_gb": by["params"] / 1e9,
+               "caches_gb": by["caches"] / 1e9,
+               "inputs_bytes": by["inputs"], "total_gb": per_dev / 1e9,
+               "fits_hbm": per_dev <= HBM_BYTES,
+               "flops_per_device": rec["flops_per_device"],
+               "flops_global": rec["flops_global"],
+               "roofline": {k: terms[k] for k in (
+                   "t_compute_s", "t_memory_s", "t_collective_s",
+                   "dominant", "useful_compute_ratio", "roofline_fraction",
+                   "hbm_gb_per_device")}}
+    print(f"[plan] glm4-9b decode_32k on {rec['mesh']}: per device "
+          f"{summary['params_gb']:.4f} GB of parameters, "
+          f"{summary['caches_gb']:.4f} GB of KV cache, {by['inputs']} bytes "
+          f"of inputs; {summary['total_gb']:.4f} GB in all, "
+          f"{'fits' if summary['fits_hbm'] else 'does not fit'} the "
+          f"card's {HBM_BYTES / 1e9:.0f} GB", flush=True)
+    summary["record_seconds"] = rec["seconds"]
+    summary["seconds_counting_flops"] = rec["seconds_counting_flops"]
+    print(f"[dryrun] exit 0, status ok in {secs:.1f} s (the cell "
+          f"{rec['seconds']} s, of it counting flops "
+          f"{rec['seconds_counting_flops']} s); flops global "
+          f"{rec['flops_global']}, per device {rec['flops_per_device']} "
+          f"(global/devices); "
+          f"roofline {json.dumps(summary['roofline'])}; collectives "
+          f"absent: {rec['collective_reason']}", flush=True)
+    return summary
+
+
+def phase_path_l(torch, info: dict, mm_rows: list[dict], timer) -> tuple:
+    """Path L: the batched scorer on the card, the bridge MIP's picks on
+    matmul_int8 (the path's launches), and the sharding plan's dry run.
+    Returns (summary, launches)."""
+    t = time.monotonic()
+    scorer = _path_l_scorer(torch, info)
+    t_scorer = time.monotonic() - t
+    bridge, launches = _path_l_bridge(torch, info, mm_rows, timer)
+    t_bridge = time.monotonic() - t - t_scorer
+    dry = _path_l_dryrun(info)
+    require(launches["matmul_int8"] == len(bridge["rows"]) and
+            launches["flash_attention"] == 0 and launches["ssd_scan"] == 0,
+            f"L: launches {launches}")
+    return {"scorer": scorer, "bridge": bridge, "dryrun": dry,
+            "seconds": {"scorer": t_scorer, "bridge": t_bridge,
+                        "dryrun": dry["seconds"]}}, launches
+
+
 def phase_path_e(torch, info: dict) -> tuple:
     """mamba2-1.3b served at its published widths. Its forward runs the
     plain SSD product, as the reference's does; beside it the path runs
@@ -1875,6 +2147,8 @@ def main() -> int:
     _free(torch)
     lives["J"], launches["J"] = timed("J", phase_path_j, torch, info)
     lives["K"], launches["K"] = timed("K", phase_path_k, torch, info)
+    lives["L"], launches["L"] = timed("L", phase_path_l, torch, info, mm,
+                                      timer)
     seconds.update({f"K {k}": round(v, 1)
                     for k, v in lives["K"]["seconds"].items()})
     kernels = [kernel_entry("matmul_int8", mm, "A", launches),

@@ -202,10 +202,23 @@ class SearchResult:
     n_sampled: int
 
 
+def candidate_pool(layer: wl.Layer, arch: CimArch, budget: int = 2000,
+                   seed: int = 0, k_min: int = 3,
+                   alpha: float = 0.15) -> list[Mapping]:
+    """The ``budget`` raw samples `heuristic_search` ranks, in its order:
+    one ``random.Random(seed)`` over the layer's factorization."""
+    rng = random.Random(seed)
+    factors = factorize_layer_dims({d: layer.bound(d) for d in wl.DIMS},
+                                   alpha=alpha, k_min=k_min)
+    return [sample_mapping_raw(layer, arch, rng, factors)
+            for _ in range(budget)]
+
+
 def heuristic_search(layer: wl.Layer, arch: CimArch, budget: int = 2000,
                      seed: int = 0, accurate: bool = False,
                      k_min: int = 3, alpha: float = 0.15,
-                     backend: str | None = None) -> SearchResult:
+                     backend: str | None = None,
+                     device="cuda") -> SearchResult:
     """ZigZag-style mapper. ``accurate=False`` ranks candidates with the
     idealized perfect-overlap model (the strawman the paper criticizes);
     ``accurate=True`` ranks with the full analytical model (ablation).
@@ -214,20 +227,28 @@ def heuristic_search(layer: wl.Layer, arch: CimArch, budget: int = 2000,
     ranked in one batched dispatch (`latency_batched.score_mappings` —
     bit-equal to the scalar oracle, so the winner, its cost and the
     feasible count are identical to the historical per-candidate loop).
-    ``backend`` forwards to the batched scorer (NumPy only in the port)."""
-    import numpy as np
-
+    ``backend`` and ``device`` forward to the batched scorer: None or
+    "numpy" scores on the host, "torch" in float64 on ``device``; both
+    give the same bits, so the same winner."""
     from repro_torch.core import latency_batched as lb
 
-    rng = random.Random(seed)
-    factors = factorize_layer_dims({d: layer.bound(d) for d in wl.DIMS},
-                                   alpha=alpha, k_min=k_min)
-    cands = [sample_mapping_raw(layer, arch, rng, factors)
-             for _ in range(budget)]
+    cands = candidate_pool(layer, arch, budget, seed, k_min, alpha)
     need = ("feasible", "latency") if accurate else ("feasible", "ideal")
-    sc = lb.score_mappings(cands, layer, arch, need=need, backend=backend)
+    sc = lb.score_mappings(cands, layer, arch, need=need, backend=backend,
+                           device=device)
+    return pick_winner(cands, sc, layer, arch, accurate=accurate)
+
+
+def pick_winner(cands: list[Mapping], sc, layer: wl.Layer, arch: CimArch,
+                *, accurate: bool = False) -> SearchResult:
+    """`heuristic_search`'s choice from its pool's scores ``sc`` (a
+    `latency_batched.BatchScores` holding feasibility, and the idealized
+    time or, with ``accurate``, the cycles): the first feasible minimum,
+    else the greedy mapping."""
+    import numpy as np
+
     best, best_cost = None, math.inf
-    feas = int(sc.feasible.sum()) if budget else 0
+    feas = int(sc.feasible.sum()) if cands else 0
     if feas:
         cost = np.where(sc.feasible,
                         sc.cycles if accurate else sc.idealized, math.inf)
@@ -239,7 +260,7 @@ def heuristic_search(layer: wl.Layer, arch: CimArch, budget: int = 2000,
     return SearchResult(
         mapping=best, chosen_by_cost=best_cost,
         eval_latency=evaluate(best, layer, arch).total_cycles,
-        n_feasible=feas, n_sampled=budget)
+        n_feasible=feas, n_sampled=len(cands))
 
 
 def random_search(layer: wl.Layer, arch: CimArch, budget: int = 2000,

@@ -15,19 +15,24 @@ What changes from the TPU bridge:
     registers on the GPU, not in the on-chip buffer;
   * the shared-memory default is the H100's (below), never the TPU's VMEM.
 
-The bridge MIP (`select_matmul_blocks`) is off the measured-execution
-path and is not ported yet.
+The bridge MIP (`select_matmul_blocks`) re-instantiates the paper's
+formulation over this hierarchy for the matmul_int8 kernel. As in the
+reference it stays off the measured-execution path: the executor takes
+the mapping-derived blocks (`select_blocks_from_mapping`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
+from repro_torch.core.mip.model import LinExpr, MipModel
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.matmul_int8 import kernel as mm_kernel
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.launch.mesh import HBM_BW, PEAK_INT8_OPS
 
 #: Shared memory one CTA can use on an H100 (227 KB of the SM's 256 KB,
 #: as dynamic shared memory after opting in).
@@ -118,6 +123,143 @@ def fit_blocks(bm: int, bk: int, bn: int, budget: int) -> tuple[int, int, int]:
         else:
             break
     return bm, bk, bn
+
+
+@dataclasses.dataclass
+class BlockChoice:
+    """A matmul_int8 tile from the bridge MIP: the blocks, whether the
+    operand ring overlaps loads with the tensor cores (always, see
+    `select_matmul_blocks`), the model's time at the pick, the CTA's
+    shared memory and the solver's status (``"fallback"`` when it
+    failed)."""
+    bm: int
+    bk: int
+    bn: int
+    double_buffered: bool
+    est_seconds: float
+    smem_bytes: int
+    status: str
+
+
+def matmul_traffic(m: int, k: int, n: int, bm: int, bn: int) -> int:
+    """Device-memory bytes of one (m, k, n) matmul_int8 at (bm, bn): the
+    reference's weight-reload model. x is read once per column of tiles
+    (ceil(n / bn) times), w once per row of tiles (ceil(m / bm) times),
+    the 4-byte output written once."""
+    return m * k * math.ceil(n / bn) + k * n * math.ceil(m / bm) + 4 * m * n
+
+
+def matmul_seconds(m: int, k: int, n: int, bm: int, bn: int) -> float:
+    """The model's time of one call: loads overlap the tensor cores (the
+    kernel's ring), so the larger of the traffic over ``HBM_BW`` and the
+    2mnk operations over ``PEAK_INT8_OPS``."""
+    return max(matmul_traffic(m, k, n, bm, bn) / HBM_BW,
+               2.0 * m * n * k / PEAK_INT8_OPS)
+
+
+def tile_order(m: int, k: int, n: int) -> list[tuple[int, int, int]]:
+    """Every (bm, bk, bn) of the kernel's tile set, in the order that
+    breaks the model's ties (bk enters no traffic term, and many tiles
+    share a reload count): least tensor-core work issued with the masked
+    tails, then the fewest K steps, then the least shared memory."""
+    def key(t):
+        bm, bk, bn = t
+        work = (math.ceil(m / bm) * bm) * (math.ceil(n / bn) * bn) * \
+            (math.ceil(k / bk) * bk)
+        return work, math.ceil(k / bk), mm_kernel.smem_bytes(bm, bk, bn), t
+    return sorted(((bm, bk, bn) for bm in mm_kernel.BM_TILES
+                   for bk in mm_kernel.BK_TILES
+                   for bn in mm_kernel.BN_TILES), key=key)
+
+
+#: Weight of one step of `tile_order` in the MIP's objective, in units of
+#: the compulsory time (every operand read once): small enough that the
+#: 36 steps never outweigh a reload, large enough to clear the solver's
+#: absolute gap (1e-6).
+TIE_WEIGHT = 1e-5
+
+
+def matmul_objective(m: int, k: int, n: int, bm: int, bk: int,
+                     bn: int) -> float:
+    """What `select_matmul_blocks` minimises at one tile: the model's time
+    in units of the compulsory time, plus ``TIE_WEIGHT`` per step of
+    `tile_order`."""
+    unit = (m * k + k * n + 4 * m * n) / HBM_BW
+    rank = tile_order(m, k, n).index((bm, bk, bn))
+    return matmul_seconds(m, k, n, bm, bn) / unit + TIE_WEIGHT * rank
+
+
+def select_matmul_blocks(m: int, k: int, n: int, *,
+                         smem_bytes: int = SMEM_BYTES,
+                         time_limit_s: float = 5.0) -> BlockChoice:
+    """MIP block-shape selection for the matmul_int8 kernel: the
+    reference's `tpu_bridge.select_matmul_blocks` over the H100's
+    hierarchy.
+
+        min  T + TIE_WEIGHT * rank(bm, bk, bn)
+        s.t. T >= t_mem = traffic(bm, bn) / HBM_BW        (Table III,
+             T >= t_tc  = 2mnk / PEAK_INT8_OPS              overlapped row)
+             smem_bytes(bm, bk, bn) <= smem_bytes          (eq. 9)
+
+    Each block dimension is a one-hot over the tile set the kernel
+    instantiates (``BM_TILES``, ``BK_TILES``, ``BN_TILES``), in place of
+    the reference's lane / sublane alignment: the kernel masks ragged
+    tails, so a tile need not divide its dimension and nothing is padded.
+    One binary per (bm, bk, bn), tied to the three one-hots, carries the
+    terms that are not separable: the shared memory and the tie order.
+
+    Capacity (eq. 9) counts the kernel's whole 3-stage ``cp.async`` ring
+    (`mm_kernel.smem_bytes`); the int32 accumulator lives in registers.
+    The reference's psi^DM binary doubles the working set when loads
+    overlap compute; the kernel always runs its ring, so that choice is
+    fixed: the capacity is the ring's, the Table III row is the
+    overlapped one (T >= t_mem, T >= t_tc) and ``double_buffered`` is
+    reported True. A single-buffered row would describe a kernel that
+    does not exist.
+
+    Traffic is the reference's weight-reload model (`matmul_traffic`).
+    Times are in units of the compulsory time (every operand read once)
+    so that the solver's tolerances are relative to the problem. Ties
+    (bk enters no time term) go by `tile_order`. A failed solve returns
+    the smallest tile of the set with ``status="fallback"``, as the
+    reference returns its default block.
+    """
+    if min(m, k, n) < 1:
+        raise ValueError(f"matmul ({m}, {k}, {n}) has an empty dimension")
+    cm, ck, cn = mm_kernel.BM_TILES, mm_kernel.BK_TILES, mm_kernel.BN_TILES
+    order = tile_order(m, k, n)
+    unit = (m * k + k * n + 4 * m * n) / HBM_BW
+    mdl = MipModel("gpu-matmul-blocks")
+    vm = mdl.add_one_hot("bm", len(cm))
+    vk = mdl.add_one_hot("bk", len(ck))
+    vn = mdl.add_one_hot("bn", len(cn))
+    z = mdl.add_choice("tile", order)
+    for (bm, bk, bn), v in z.items():
+        mdl.add_le(v - vm[cm.index(bm)], 0.0)
+        mdl.add_le(v - vk[ck.index(bk)], 0.0)
+        mdl.add_le(v - vn[cn.index(bn)], 0.0)
+    mdl.add_le(sum((float(mm_kernel.smem_bytes(*t)) * v
+                    for t, v in z.items()), LinExpr({}, 0.0)),
+               float(smem_bytes))
+    traffic = LinExpr({}, float(4 * m * n))
+    for c, v in zip(cn, vn):
+        traffic = traffic + float(m * k * math.ceil(n / c)) * v
+    for c, v in zip(cm, vm):
+        traffic = traffic + float(k * n * math.ceil(m / c)) * v
+    t = mdl.add_var("T", 0.0, math.inf)
+    mdl.add_ge(t - traffic * (1.0 / (HBM_BW * unit)), 0.0)
+    mdl.add_ge(t, 2.0 * m * n * k / PEAK_INT8_OPS / unit)
+    mdl.minimize(t + sum((TIE_WEIGHT * r * z[tile]
+                          for r, tile in enumerate(order)),
+                         LinExpr({}, 0.0)))
+    sol = mdl.solve(time_limit_s=time_limit_s, mip_rel_gap=0.0)
+    if not sol.ok:
+        bm, bk, bn = min(cm), min(ck), min(cn)
+        return BlockChoice(bm, bk, bn, True, math.nan,
+                           mm_kernel.smem_bytes(bm, bk, bn), "fallback")
+    bm, bk, bn = max(z, key=lambda tile: sol[z[tile]])
+    return BlockChoice(bm, bk, bn, True, sol[t] * unit,
+                       mm_kernel.smem_bytes(bm, bk, bn), sol.status.name)
 
 
 #: block_k of a decode step (seq_q = 1) by the operands' bytes per element:

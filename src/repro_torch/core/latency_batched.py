@@ -30,8 +30,13 @@ structural legality (factor products, spatial axis membership, monotone
 level assignment, C^M) holds for such candidates by construction. For
 arbitrary mappings run ``mapping.validate`` instead.
 
-This copy keeps only the NumPy backend, which evaluates the identical
-IEEE-754 operation sequence as the scalar model.
+Two backends evaluate the identical IEEE-754 operation sequence and return
+bit-identical arrays: the NumPy loop, and ``backend="torch"``, the same
+recursion and folds on float64 tensors on a device (the counterpart of the
+reference's jitted backend). Both run the shared `_recursion_step` /
+`_aggregate` code; the torch one through `_TorchOps`, an array namespace
+that keeps every op eager and unfused, so each product and sum rounds once
+as in the scalar model.
 """
 
 from __future__ import annotations
@@ -74,7 +79,7 @@ class PackedBatch:
     fill_c: np.ndarray      # (B,L,3) untriggered one-time fill cycles
     e_term: np.ndarray      # (B,L,3) per-hop traffic pJ (bytes x pJ/byte,
                             # multiplied at pack time: a fused multiply-add
-                            # inside the jitted fold would round differently
+                            # inside a device fold would round differently
                             # than the scalar oracle's separate mul-then-add)
     ideal_num: np.ndarray   # (B,3L) idealized iters*chunk, pad 0.0
     ideal_bw: np.ndarray    # (B,3L) idealized eff bandwidth, pad 1.0
@@ -249,7 +254,7 @@ _IS_IW = (True, True, False)
 
 def _recursion_step(xp, carry, nf_i, t_i, dbl_i):
     """One slot of the Table III recursion, operands unrolled in scalar
-    order. ``xp`` is ``numpy``; shapes (B,) / (B,3)."""
+    order. ``xp`` is ``numpy`` or `_TorchOps`; shapes (B,) / (B,3)."""
     l_next, n_next, p_next = carry
     combined = xp.zeros_like(l_next)
     for j in range(3):
@@ -326,17 +331,100 @@ def _eval_numpy(pb: PackedBatch) -> tuple:
                       pb.caps, pb.shared, mac_pj)
 
 
-def evaluate_batch(pb: PackedBatch, backend: str | None = None
-                   ) -> BatchScores:
-    """Evaluate a packed batch. ``backend``: "numpy" | None (the NumPy
-    loop either way). The reference's jitted backend has no counterpart
-    here yet: a torch backend is a later item of the port (ROADMAP Queue
-    A, the batched scorer's torch backend)."""
-    if backend not in (None, "numpy"):
-        raise NotImplementedError(
-            f"batched backend {backend!r} is not ported (ROADMAP Queue A, "
-            f"the batched scorer's torch backend)")
-    cyc, en, edp, ideal, feas = _eval_numpy(pb)
+#: The batched backends. ``None`` is the NumPy loop.
+BACKENDS = ("numpy", "torch")
+
+
+class _TorchOps:
+    """The array namespace `_recursion_step` and `_aggregate` are written
+    against, over float64 tensors on ``device``. Every call is one eager
+    PyTorch op, so a product and the sum after it round twice, as in the
+    scalar model: no fused multiply-add, no compiled graph. NumPy's
+    ``maximum(x, 0.0)`` becomes ``clamp_min(0.0)``, which rounds alike
+    (``torch.maximum`` takes no Python scalar), and the folds stay the
+    explicit left folds of `_aggregate`, never a tree-ordered ``sum``."""
+
+    def __init__(self, torch, device):
+        self.torch, self.device = torch, device
+
+    def zeros_like(self, x):
+        return self.torch.zeros_like(x)
+
+    def ones(self, shape, dtype):
+        dtype = self.torch.bool if dtype is bool else dtype
+        return self.torch.ones(shape, dtype=dtype, device=self.device)
+
+    def where(self, cond, a, b):
+        return self.torch.where(cond, a, b)
+
+    def maximum(self, a, b):
+        if isinstance(b, float):
+            return a.clamp_min(b)
+        return self.torch.maximum(a, b)
+
+    def stack(self, xs, axis):
+        return self.torch.stack(xs, dim=axis)
+
+    def all(self, x, axis):
+        return x.all(dim=axis)
+
+
+def _check_backend(backend: str | None, device) -> None:
+    """Refuse an unknown backend, and a card that is not there, before any
+    packing or evaluation is done."""
+    if backend == "jax":
+        raise ValueError('the port has no "jax" backend: use "torch" '
+                         '(float64 on a device) or "numpy"')
+    if backend not in (None,) + BACKENDS:
+        raise ValueError(f"batched backend {backend!r} is not one of "
+                         f"{BACKENDS}")
+    if backend == "torch":
+        import torch
+        if torch.device(device).type == "cuda" and \
+                not torch.cuda.is_available():
+            raise RuntimeError(f"backend 'torch' on {device!r}: no CUDA "
+                               f"device (pass device='cpu' to score on the "
+                               f"host)")
+
+
+def _eval_torch(pb: PackedBatch, device) -> tuple:
+    """The NumPy backend's op sequence on float64 tensors on ``device``;
+    returns host arrays."""
+    import torch
+    dev = torch.device(device)
+    xp = _TorchOps(torch, dev)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    B = pb.batch
+    l_mvm = float(pb.arch.l_mvm_cycles)
+    f64 = dict(dtype=torch.float64, device=dev)
+    carry = (torch.full((B,), l_mvm, **f64), torch.ones(B, **f64),
+             torch.full((B, 3), l_mvm, **f64))
+    nf, t, dbl = put(pb.nf), put(pb.t), put(pb.dbl)
+    for i in range(pb.nf.shape[1] - 1, -1, -1):
+        carry = _recursion_step(xp, carry, nf[:, i], t[:, i, :],
+                                dbl[:, i, :])
+    mac_pj = pb.layer.macs * pb.arch.mac_energy_pj
+    out = _aggregate(xp, carry[2], put(pb.fill_c), put(pb.e_term),
+                     put(pb.ideal_num), put(pb.ideal_bw), put(pb.compute),
+                     put(pb.sizes), put(pb.caps), put(pb.shared), mac_pj)
+    return tuple(x.cpu().numpy() for x in out)
+
+
+def evaluate_batch(pb: PackedBatch, backend: str | None = None, *,
+                   device="cuda") -> BatchScores:
+    """Evaluate a packed batch. ``backend``: "numpy", "torch" (float64 on
+    ``device``) or None, the NumPy loop. Both return bit-identical arrays.
+
+    None never picks the device by itself, as the reference's auto choice
+    picks jax by what is importable: the optimizer is host code, and a
+    device chosen by what the machine happens to have would be a hidden
+    fallback. The caller asks for ``"torch"`` and names the device; on
+    ``"cuda"`` without a card that raises before any work."""
+    _check_backend(backend, device)
+    if backend == "torch":
+        cyc, en, edp, ideal, feas = _eval_torch(pb, device)
+    else:
+        cyc, en, edp, ideal, feas = _eval_numpy(pb)
     if pb.gated:
         # gated packs hold identity padding in infeasible rows
         bad = ~np.asarray(feas)
@@ -353,13 +441,16 @@ def evaluate_batch(pb: PackedBatch, backend: str | None = None
 
 def score_mappings(mappings: Sequence[Mapping], layer: wl.Layer,
                    arch: CimArch, *, need: Sequence[str] = ALL_NEEDS,
-                   backend: str | None = None) -> BatchScores:
+                   backend: str | None = None,
+                   device="cuda") -> BatchScores:
     """Pack + evaluate in one call — the enumerate-then-score entry point
     used by `baselines.heuristic_search`, `dse.screen_arch` and the MIP
-    warm-start incumbent pools."""
+    warm-start incumbent pools. ``backend`` and ``device`` as in
+    `evaluate_batch`; both are checked before the pool is packed."""
+    _check_backend(backend, device)
     if not mappings:
         z = np.zeros(0)
         return BatchScores(cycles=z, energy_pj=z, edp=z, idealized=z,
                            feasible=np.zeros(0, dtype=bool))
     return evaluate_batch(pack(mappings, layer, arch, need=need),
-                          backend=backend)
+                          backend=backend, device=device)

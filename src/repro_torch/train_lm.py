@@ -16,7 +16,9 @@ and encdec models read the stream's frontend embeddings.
 
 It runs on the card unless ``--device cpu`` is passed; ``--device cuda``
 without a card fails before the model is drawn. ``--production-mesh``
-raises: sharding is not ported (ROADMAP Queue A.4).
+raises: the sharding plan exists (`sharding.rules`), but the train step
+does not run on a mesh yet (ROADMAP Queue A.4, the multi-device
+driver).
 
 Restart: with ``--ckpt-dir`` the run resumes from the newest checkpoint
 there, as the reference's does: a checkpoint of step s holds the state
@@ -62,7 +64,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="not ported: raises (ROADMAP Queue A.4)")
+                    help="not ported: raises (ROADMAP Queue A.4, the "
+                         "multi-device driver)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
@@ -134,8 +137,9 @@ def run(argv=None, *, on_step=None):
     args = build_parser().parse_args(argv)
     if args.production_mesh:
         raise NotImplementedError(
-            "--production-mesh: sharding is not ported (ROADMAP Queue A.4); "
-            "train_lm runs on one device")
+            "--production-mesh: the train step does not run on a mesh yet "
+            "(ROADMAP Queue A.4, the multi-device driver); train_lm runs "
+            "on one device")
     check_device(args.device)
     device = torch.device(args.device)
     cfg, opt_cfg, step_cfg, data = configure(args)

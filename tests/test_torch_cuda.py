@@ -911,3 +911,60 @@ def test_train_lm_restart_on_card(cuda, tmp_path, capsys):
     assert "[restore] resumed from step 3" in capsys.readouterr().out
     assert len(losses2) == 3 and int(state.opt.step) == 7
     assert losses2[0] == pytest.approx(float(l_star), rel=1e-6, abs=0)
+
+
+@pytest.mark.parametrize("ungated", [False, True])
+def test_batched_scorer_torch_backend_on_card(cuda, ungated):
+    """The batched scorer's torch backend on the card (float64, eager, no
+    fused ops) is bit-equal to the NumPy loop on a pool of raw samples,
+    gated (mostly inf) and ungated (the recursion on every row)."""
+    import numpy as np
+
+    from repro_torch.core import baselines
+    from repro_torch.core import latency_batched as lb
+    from repro_torch.core import workload as wl
+    from repro_torch.core.arch import default_arch
+    layer, arch = wl.gemm("card.lb", 32, 512, 512), default_arch(
+        n_cores=2, macro_rows=64, macro_cols=16, gbuf_kb=2.0, lbuf_kb=8.0,
+        name="lb-tiny")
+    pool = baselines.candidate_pool(layer, arch, budget=4096, seed=3)
+    need = ("latency", "energy", "ideal") if ungated else lb.ALL_NEEDS
+    pb = lb.pack(pool, layer, arch, need=need)
+    host = lb.evaluate_batch(pb, backend="numpy")
+    card = lb.evaluate_batch(pb, backend="torch", device="cuda")
+    for f in ("cycles", "energy_pj", "edp", "idealized", "feasible"):
+        a, b = getattr(host, f), getattr(card, f)
+        assert (a is None and b is None) or (
+            a.dtype == b.dtype and np.array_equal(a, b)), f
+    if ungated:
+        assert np.isfinite(card.cycles).all()
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 4096, 4096), (1, 4096, 1000),
+                                   (100, 200, 360), (130, 24, 1000),
+                                   (257, 1000, 65)])
+def test_matmul_int8_at_bridge_mip_picks(cuda, m, k, n):
+    """matmul_int8 at `gpu_bridge.select_matmul_blocks`' pick: bit-equal
+    to the plain version at unit scales, within NUMERICS_TOL scaled."""
+    from repro_torch.core.executor import NUMERICS_TOL
+    from repro_torch.core.gpu_bridge import select_matmul_blocks
+    from repro_torch.kernels.matmul_int8 import kernel
+    from repro_torch.kernels.matmul_int8.ref import matmul_int8_ref
+    c = select_matmul_blocks(m, k, n)
+    assert c.status != "fallback"
+    g = _gen(7)
+    x = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=cuda,
+                      generator=g)
+    w = torch.randint(-127, 128, (k, n), dtype=torch.int8, device=cuda,
+                      generator=g)
+    ones_m, ones_n = torch.ones(m, device=cuda), torch.ones(n, device=cuda)
+    run = lambda a, b: kernel.matmul_int8(x, w, a, b, bm=c.bm, bk=c.bk,
+                                          bn=c.bn, out_dtype=torch.float32)
+    assert torch.equal(run(ones_m, ones_n),
+                       matmul_int8_ref(x, w, ones_m, ones_n, torch.float32))
+    xs = torch.rand(m, device=cuda, generator=g) / 127
+    ws = torch.rand(n, device=cuda, generator=g) / 127
+    out, ref = run(xs, ws).double(), matmul_int8_ref(
+        x, w, xs, ws, torch.float32).double()
+    assert float((out - ref).norm() / ref.norm()) <= \
+        NUMERICS_TOL["matmul_int8"]

@@ -182,3 +182,64 @@ def test_train_driver_and_mesh_run_with_jax_and_reference_blocked(tmp_path):
     assert res.returncode == 0, res.stderr[-3000:]
     assert "ISOLATED-OK" in res.stdout
     assert "[restore] resumed from step 2" in res.stdout
+
+
+def test_every_module_imports_and_launch_runs_with_jax_and_reference_blocked(
+        tmp_path):
+    """Every module of the port imports with ``jax`` and ``repro``
+    blocked; the scorer's torch backend, the bridge MIP, the sharding plan
+    and a reduced dry-run cell (its own process: the fake process group)
+    run there too."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "sys.modules['jax'] = sys.modules['repro'] = None\n"
+        "sys.modules['benchmarks'] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert {'repro_torch.launch.mesh', 'repro_torch.launch.roofline',\n"
+        "        'repro_torch.launch.dryrun'} <= set(names)\n"
+        "from repro_torch.core import baselines, latency_batched as lb\n"
+        "from repro_torch.core import workload as wl\n"
+        "from repro_torch.core.arch import default_arch\n"
+        "from repro_torch.core.gpu_bridge import select_matmul_blocks\n"
+        "from repro_torch.configs import SHAPES, get_config\n"
+        "from repro_torch.launch.roofline import model_flops\n"
+        "from repro_torch.sharding.rules import make_plan\n"
+        "layer, arch = wl.gemm('iso', 32, 512, 512), default_arch()\n"
+        "pool = baselines.candidate_pool(layer, arch, budget=64)\n"
+        "a = lb.score_mappings(pool, layer, arch, backend='torch',\n"
+        "                      device='cpu')\n"
+        "assert (a.cycles == lb.score_mappings(pool, layer, arch).cycles\n"
+        "        ).all()\n"
+        "assert select_matmul_blocks(128, 4096, 4096).status == 'OPTIMAL'\n"
+        "class M:\n"
+        "    mesh_dim_names, shape = ('data', 'model'), (16, 16)\n"
+        "plan = make_plan(M(), get_config('glm4-9b'), SHAPES['decode_32k'])\n"
+        "assert plan.cache_spec('kv') == (None, 'data', 'model', None, None)\n"
+        "assert model_flops('glm4-9b', 'decode_32k') > 0\n"
+        "import torch.distributed as dist\n"
+        "from torch.testing._internal.distributed.fake_pg import FakeStore\n"
+        "from repro_torch.launch.dryrun import lower_cell\n"
+        "from repro_torch.launch.mesh import make_production_mesh\n"
+        "dist.init_process_group('fake', store=FakeStore(), rank=0,\n"
+        "                        world_size=256)\n"
+        "rec = lower_cell('mamba2-1.3b', 'decode_32k', multi_pod=False,\n"
+        "                 mesh=make_production_mesh(device_type='cpu'),\n"
+        "                 cfg=get_config('mamba2-1.3b').reduced())\n"
+        "dist.destroy_process_group()\n"
+        "assert rec['status'] == 'ok' and rec['flops_error'] is None, rec\n"
+        "assert rec['shapes']['caches'] and rec['flops_global'] > 0\n"
+        "assert not any(m.split('.')[0] in ('jax', 'repro', 'benchmarks')\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ISOLATED-OK')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         cwd=tmp_path, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "ISOLATED-OK" in res.stdout
