@@ -132,7 +132,19 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      three kernels launched; step ms, tokens/s, peak bytes, the
      checkpoint's bytes, save and restore seconds and GB/s and the free
      disk;
-  7. path L, after K: ``[scorer]`` the batched scorer
+  7. path M, after K: K's two runs (the same flags, data stream and
+     schedule) through ``repro_torch.train_lm`` on a one-rank mesh over
+     ``nccl`` (``WORLD_SIZE=1`` in a process of its own, `path_m_child`):
+     the state drawn onto the sharding plan as DTensors, each batch on
+     the plan's batch spec, ``shard_fn`` inside the forward, the sharded
+     checkpoint saved at step RESTART_K and resumed from; its losses and
+     grad norms within TRAIN_TOL relative of K's, the checkpoint's leaves
+     equal to the sharded state, run 2 resumed with its first loss L*
+     and the replay below it, every parameter a DTensor, none of the
+     three kernels launched; step ms beside J's and K's, tokens/s, peak
+     bytes, the seconds to draw and place the state, save and restore
+     seconds;
+  8. path L, after M: ``[scorer]`` the batched scorer
      (`core.latency_batched`) over `baselines.heuristic_search`'s pools of
      SCORER_POOL mappings (SCORER_POOLS: path A's ffn_up ungated, path
      B's ssd_s_chunk gated), the NumPy loop on the host against
@@ -149,11 +161,13 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      repro_torch.launch.dryrun`` for glm4-9b ``decode_32k`` on the
      single-pod mesh in a subprocess (the fake process group): exit 0,
      status ok, flops counted (no op without a meta kernel), per-device parameter and KV-cache GB against the card's
-     80 GB, and the roofline terms;
-  8. the ``kernels`` line: matmul_int8 and flash_attention count-weighted
+     80 GB, the collective bytes per device by kind (the plan inside the
+     forward on the fake mesh; null fails the run) and the roofline
+     terms, the collective one among them;
+  9. the ``kernels`` line: matmul_int8 and flash_attention count-weighted
      over path A's plan (one decode step), ssd_scan over path B's (one
-     prompt pass); launches are summed over the main paths A-L;
-  9. the last line: ``{"ok": true, "device": {...}}``.
+     prompt pass); launches are summed over the main paths A-M;
+  10. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero before printing any result.
@@ -1200,10 +1214,11 @@ def phase_path_k(torch, info: dict) -> tuple:
         peak = {}
         torch.cuda.reset_peak_memory_stats()
         t = time.monotonic()
+        rec = {1: {}, 2: {}}
         (losses1, state), launches1 = drive(
             torch, "K run 1", lambda: train_lm.run(
                 argv1, on_step=lambda s, loss, dt, st: ms[1].append(
-                    dt * 1e3)))
+                    dt * 1e3), record=rec[1]))
         secs["run1"] = time.monotonic() - t
         peak[1] = torch.cuda.max_memory_allocated()
         saved = ckpt_mod.latest_step(ckpt_dir)
@@ -1253,8 +1268,8 @@ def phase_path_k(torch, info: dict) -> tuple:
         t = time.monotonic()
         with contextlib.redirect_stdout(tee):
             (losses2, state), launches2 = drive(
-                torch, "K run 2", lambda: train_lm.run(argv2,
-                                                       on_step=on_step2))
+                torch, "K run 2", lambda: train_lm.run(
+                    argv2, on_step=on_step2, record=rec[2]))
         secs["run2"] = time.monotonic() - t - secs.get("hold4", 0.0)
         peak[2] = torch.cuda.max_memory_allocated()
         del state
@@ -1306,7 +1321,10 @@ def phase_path_k(torch, info: dict) -> tuple:
             f"replay of it, not lower")
     require(launches == dict.fromkeys(KERNELS, 0), f"K: launches {launches}")
     summary = {"n_params": n_params, "losses_run1": losses1,
-               "losses_run2": losses2, "l_star": l_star, "rel_gap": gap,
+               "losses_run2": losses2,
+               "grad_norms": {r: [m["grad_norm"] for m in rec[r]["steps"]]
+                              for r in rec},
+               "l_star": l_star, "rel_gap": gap,
                "learned_nats": learned, "after_replay": after[0],
                "replayed_nats": replayed,
                "step_ms": ms, "step_ms_median": step_ms,
@@ -1318,6 +1336,233 @@ def phase_path_k(torch, info: dict) -> tuple:
                "restore_gb_s": n_bytes / load_s / 1e9,
                "free_bytes_before": free,
                "seconds": dict(secs, save=save_s, restore=load_s)}
+    return summary, launches
+
+
+#: Path M: K's runs (the same flags, data stream and schedule) through
+#: `train_lm` on a one-rank mesh over ``nccl``, in a process of its own
+#: (``WORLD_SIZE=1``): the DTensor path end to end. Its losses and grad
+#: norms hold K's within TRAIN_TOL relative (K runs the same driver on
+#: one device; J's fixed batch is not train_lm's data stream, so J's step
+#: time is printed beside M's, and J's numbers are not held).
+MESH_TIMEOUT_S = 600
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _path_m_argv(ckpt_dir: str) -> tuple[list[str], list[str]]:
+    """K's two runs' flags: run 1 to RESTART_K with a save there, run 2
+    resumed to RESTART_K + 2."""
+    base = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--seed", str(TRAIN_SEED),
+            "--device", "cuda", "--log-every", "1", "--ckpt-dir", ckpt_dir]
+    return (base + ["--steps", str(RESTART_K + 1), "--ckpt-every",
+                    str(RESTART_K)],
+            base + ["--steps", str(RESTART_K + 3), "--ckpt-every",
+                    str(100 * RESTART_K)])
+
+
+def path_m_child(out_path: str) -> int:
+    """The body of path M, in the process that ``WORLD_SIZE=1`` makes a
+    one-rank mesh: K's two runs through ``train_lm.run``, the sharded
+    checkpoint against the state, L* and the replay as K holds them, the
+    launch counters from zero; everything measured goes to ``out_path``
+    as JSON."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import train_lm
+    from repro_torch.checkpoint import checkpoint as ckpt_mod
+    from repro_torch.sharding.rules import is_dtensor
+    from repro_torch.train import steps
+    io_s = {"save": [], "load": []}
+    save, load = ckpt_mod.save_checkpoint, ckpt_mod.load_checkpoint
+
+    def timed_save(*a, **k):
+        t = time.monotonic()
+        out = save(*a, **k)
+        io_s["save"].append(time.monotonic() - t)
+        return out
+
+    def timed_load(*a, **k):
+        t = time.monotonic()
+        out = load(*a, **k)
+        torch.cuda.synchronize()
+        io_s["load"].append(time.monotonic() - t)
+        return out
+
+    counters = _counters()
+    for m in counters.values():
+        m.launches = 0
+    ckpt_dir = tempfile.mkdtemp(prefix="miredo-ckpt-mesh-")
+    ckpt_mod.save_checkpoint, ckpt_mod.load_checkpoint = timed_save, \
+        timed_load
+    out = {"ms": {1: [], 2: []}, "peak": {}}
+    try:
+        argv1, argv2 = _path_m_argv(ckpt_dir)
+        rec = {1: {}, 2: {}}
+        torch.cuda.reset_peak_memory_stats()
+        losses1, state = train_lm.run(
+            argv1, record=rec[1], on_step=lambda s, loss, dt, st:
+            out["ms"][1].append(dt * 1e3))
+        out["peak"][1] = torch.cuda.max_memory_allocated()
+        saved = ckpt_mod.latest_step(ckpt_dir)
+        out["saved"] = saved
+        out["checkpoint_bytes"] = ckpt_mod.checkpoint_bytes(ckpt_dir, saved)
+        out["differ"] = ckpt_mod.differing_leaves(ckpt_dir, state, saved)
+        out["dtensor_params"] = all(
+            is_dtensor(p) for p in state.params.parameters())
+        plan = rec[1]["plan"]
+        args = train_lm.build_parser().parse_args(argv2)
+        cfg, _, step_cfg, data = train_lm.configure(args)
+        batch = train_lm.to_device(data.batch(RESTART_K),
+                                   state.opt.step.device, plan)
+
+        def batch_loss(st) -> float:
+            _, loss, _ = steps.loss_and_grads(st.params, cfg, step_cfg,
+                                              batch, plan.shard_fn())
+            return float(loss.full_tensor() if is_dtensor(loss) else loss)
+
+        out["l_star"] = batch_loss(state)
+        del state
+        _free(torch)
+        after = []
+
+        def on_step2(s, loss, dt, st):
+            out["ms"][2].append(dt * 1e3)
+            if s == RESTART_K:
+                after.append(batch_loss(st))
+
+        torch.cuda.reset_peak_memory_stats()
+        losses2, state = train_lm.run(argv2, record=rec[2],
+                                      on_step=on_step2)
+        out["peak"][2] = torch.cuda.max_memory_allocated()
+        # one more step under the profiler, as J's: the card's busy share
+        # of a mesh step, where the host's DTensor dispatch would show
+        _, opt_cfg, _, _ = train_lm.configure(args)
+        step = steps.make_train_step(cfg, opt_cfg, step_cfg,
+                                     rec[2]["plan"].shard_fn())
+        held = {"state": state}
+        batch = train_lm.to_device(data.batch(RESTART_K + 3),
+                                   state.opt.step.device, rec[2]["plan"])
+        del state
+
+        def one():
+            held["state"], _ = step(held["state"], batch)
+        out["profile"] = _device_profile(torch, one, 1)
+        del held, batch
+        out.update(losses1=losses1, losses2=losses2, after=after,
+                   metrics={r: rec[r]["steps"] for r in rec},
+                   init_s={r: rec[r]["init_s"] for r in rec},
+                   start_step={r: rec[r]["start_step"] for r in rec},
+                   mesh=rec[1]["mesh"], save_s=io_s["save"],
+                   restore_s=io_s["load"],
+                   launches={k: m.launches for k, m in counters.items()})
+    finally:
+        ckpt_mod.save_checkpoint, ckpt_mod.load_checkpoint = save, load
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def phase_path_m(torch, info: dict, j: dict, k: dict) -> tuple:
+    """Path M: `path_m_child` in a process with ``WORLD_SIZE=1`` on
+    ``nccl`` (K's runs on a one-rank mesh); holds its losses and grad
+    norms against K's (TRAIN_TOL relative), K's restart holds (resumed,
+    run 2's first loss L*, the replay lowers it), the sharded checkpoint
+    equal to the state, no kernel launched. Prints step ms beside J's and
+    K's, tokens/s, peak bytes, the seconds to draw and place the state,
+    save and restore seconds. Returns (summary, launches)."""
+    _free(torch)
+    with tempfile.TemporaryDirectory(prefix="miredo-mesh-") as tmp:
+        out_path = os.path.join(tmp, "m.json")
+        env = dict(os.environ, WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                   PYTHONPATH=str(ROOT / "src"))
+        t = time.monotonic()
+        res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                              "--path-m", out_path], env=env,
+                             capture_output=True, text=True,
+                             timeout=MESH_TIMEOUT_S)
+        wall = time.monotonic() - t
+        print(res.stdout[-4000:], end="", flush=True)
+        require(res.returncode == 0, f"M: exit {res.returncode}: "
+                f"{res.stderr[-3000:]}")
+        m = json.loads(Path(out_path).read_text())
+    losses = m["losses1"] + m["losses2"]
+    gnorms = [r["grad_norm"] for r in m["metrics"]["1"] + m["metrics"]["2"]]
+    k_losses = k["losses_run1"] + k["losses_run2"]
+    k_gnorms = k["grad_norms"][1] + k["grad_norms"][2]
+    gap = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    loss_gap, gnorm_gap = gap(losses, k_losses), gap(gnorms, k_gnorms)
+    l_star = m["l_star"]
+    restart_gap = abs(m["losses2"][0] - l_star) / abs(l_star)
+    replayed = l_star - m["after"][0] if m["after"] else float("nan")
+    step_ms = {r: statistics.median(v[1:]) for r, v in m["ms"].items()}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_bytes = m["checkpoint_bytes"]
+    print(f"[main M] {TRAIN_ARCH} through train_lm on the mesh {m['mesh']} "
+          f"(nccl, one rank; every parameter a DTensor: "
+          f"{m['dtensor_params']}), K's flags: run 1 losses {m['losses1']}, "
+          f"run 2 (resumed from step {m['start_step']['2']}) losses "
+          f"{m['losses2']}; grad norms {gnorms}; against K (one device): "
+          f"largest loss gap {loss_gap:.3e}, grad norm gap {gnorm_gap:.3e} "
+          f"relative (tolerance {TRAIN_TOL}); L* {l_star!r} against run "
+          f"2's first {m['losses2'][0]!r}, rel gap {restart_gap:.3e}; the "
+          f"replay {replayed:.4f} nats below L*; checkpoint leaves "
+          f"differing from the sharded state {m['differ']}; launches "
+          f"{m['launches']}", flush=True)
+    print(f"[main M] step ms run 1 {[round(v, 3) for v in m['ms']['1']]}, "
+          f"run 2 {[round(v, 3) for v in m['ms']['2']]}: median from the "
+          f"second step {step_ms['1']:.4f} / {step_ms['2']:.4f} ms "
+          f"({tokens / step_ms['1'] * 1e3:.1f} tokens/s) beside J's "
+          f"{j['step_ms_median']:.4f} ms and K's "
+          f"{k['step_ms_median'][1]:.4f} / {k['step_ms_median'][2]:.4f} ms; "
+          f"peak {m['peak']['1']:,} / {m['peak']['2']:,} bytes allocated "
+          f"(J {j['peak_bytes']:,}); state drawn and placed in "
+          f"{m['init_s']['1']:.3f} / {m['init_s']['2']:.3f} s; checkpoint "
+          f"{n_bytes:,} bytes: save {m['save_s'][0]:.3f} s, restore "
+          f"{m['restore_s'][0]:.3f} s; {wall:.1f} s wall in all; card "
+          f"{info['nvidia_smi']}", flush=True)
+    prof = m["profile"]
+    print(f"[main M] train step on the mesh profiled: wall "
+          f"{prof['wall_ms']:.4f} ms, device busy {prof['device_ms']:.4f} "
+          f"ms, busy share {1 - prof['idle_share']:.4f} (J "
+          f"{1 - j['profile']['idle_share']:.4f}), "
+          f"{prof['kernels_per_step']:.0f} kernels a step (J "
+          f"{j['profile']['kernels_per_step']:.0f}); costliest "
+          f"{prof['top']}", flush=True)
+    require(m["dtensor_params"], "M: the state is not on the mesh")
+    require(m["saved"] == RESTART_K and not m["differ"],
+            f"M: checkpoint of step {m['saved']}, differing {m['differ']}")
+    require(m["start_step"]["2"] == RESTART_K and len(m["losses2"]) == 3,
+            f"M: run 2 did not resume from step {RESTART_K}")
+    require(all(math.isfinite(v) for v in losses + gnorms + [l_star]),
+            f"M: a non-finite metric: {losses} {gnorms} {l_star}")
+    require(loss_gap <= TRAIN_TOL and gnorm_gap <= TRAIN_TOL,
+            f"M: against K, loss gap {loss_gap}, grad norm gap {gnorm_gap}")
+    require(restart_gap <= RESTART_TOL,
+            f"M: run 2's first loss {m['losses2'][0]} against L* {l_star}")
+    require(replayed > 0, f"M: the replay of batch {RESTART_K} did not "
+                          f"lower L* {l_star}: {m['after']}")
+    launches = m["launches"]
+    require(launches == dict.fromkeys(KERNELS, 0), f"M: launches {launches}")
+    summary = {"mesh": m["mesh"], "losses": losses, "grad_norms": gnorms,
+               "loss_gap_vs_k": loss_gap, "grad_norm_gap_vs_k": gnorm_gap,
+               "l_star": l_star, "restart_gap": restart_gap,
+               "replayed_nats": replayed, "step_ms": m["ms"],
+               "step_ms_median": step_ms,
+               "tokens_per_s": tokens / step_ms["1"] * 1e3,
+               "peak_bytes": m["peak"], "init_s": m["init_s"],
+               "checkpoint_bytes": n_bytes, "save_s": m["save_s"][0],
+               "restore_s": m["restore_s"][0], "profile": prof,
+               "seconds": wall}
     return summary, launches
 
 
@@ -1552,8 +1797,18 @@ def _path_l_dryrun(info: dict) -> dict:
           f"{rec['seconds_counting_flops']} s); flops global "
           f"{rec['flops_global']}, per device {rec['flops_per_device']} "
           f"(global/devices); "
-          f"roofline {json.dumps(summary['roofline'])}; collectives "
-          f"absent: {rec['collective_reason']}", flush=True)
+          f"roofline {json.dumps(summary['roofline'])}", flush=True)
+    coll = rec["collective_bytes_per_device"]
+    require(coll is not None and terms["t_collective_s"] is not None,
+            f"L: no collective bytes: {rec.get('collective_reason')}")
+    summary["collective_bytes_per_device"] = coll
+    summary["seconds_counting_collectives"] = \
+        rec["seconds_counting_collectives"]
+    print(f"[dryrun] collective bytes per device by kind {json.dumps(coll)}"
+          f" (counted in {rec['seconds_counting_collectives']} s): "
+          f"t_collective {terms['t_collective_s']!r} s at one card's "
+          f"NVLink rate, beside t_compute {terms['t_compute_s']!r} s and "
+          f"t_memory {terms['t_memory_s']!r} s", flush=True)
     return summary
 
 
@@ -2147,6 +2402,8 @@ def main() -> int:
     _free(torch)
     lives["J"], launches["J"] = timed("J", phase_path_j, torch, info)
     lives["K"], launches["K"] = timed("K", phase_path_k, torch, info)
+    lives["M"], launches["M"] = timed("M", phase_path_m, torch, info,
+                                      lives["J"], lives["K"])
     lives["L"], launches["L"] = timed("L", phase_path_l, torch, info, mm,
                                       timer)
     seconds.update({f"K {k}": round(v, 1)
@@ -2178,4 +2435,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--path-m"]:
+        sys.exit(path_m_child(sys.argv[2]))
     sys.exit(main())

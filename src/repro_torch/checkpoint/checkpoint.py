@@ -31,10 +31,19 @@ reads each layer from its file and copies it into the like-tree's
 tensor in place, on its device, and returns that tree (its seeds read
 back). Layers on the card pass through one pinned
 host buffer as large as the largest of them.
+
+A tree of ``DTensor``s (a train state on a mesh, `sharding.state`) is
+saved in the same logical, unsharded layout: every rank gathers each
+layer (``full_tensor()``, a collective, so all ranks save together),
+rank 0 alone writes it and publishes the checkpoint, and the others wait
+for it at a barrier. Loading copies each rank's own shards of each layer
+into its ``DTensor``s. So a checkpoint of a mesh run and one of a
+one-device run are the same files, and either restores onto either.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -45,6 +54,7 @@ import torch
 from torch import nn
 
 from repro_torch.param_names import reference_leaf
+from repro_torch.sharding.rules import is_dtensor
 
 _MASK32 = 0xFFFFFFFF
 
@@ -159,33 +169,66 @@ def _host(t) -> np.ndarray:
     return t.detach().contiguous().cpu().numpy()
 
 
+def _on_card(t) -> bool:
+    return isinstance(t, torch.Tensor) and t.device.type == "cuda"
+
+
+def _sharded(leaves: list[Leaf]) -> bool:
+    """Whether any part is a ``DTensor``: then every rank takes part in
+    a save and only rank 0 writes."""
+    return any(is_dtensor(t) for lf in leaves for t in lf.parts)
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
+def _local_part(host: torch.Tensor, t) -> torch.Tensor:
+    """The values of ``t``'s own shards in the whole part ``host``."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(host, t.device_mesh, t.placements,
+                             src_data_rank=None).to_local()
+
+
 class _Staging:
     """One host buffer that every part on the card passes through on its
     way to or from a file: pinned, so that each copy runs at the host
     link's full rate, and as large as the largest such part."""
 
     def __init__(self, leaves: list[Leaf]):
-        cuda = [t for lf in leaves for t in lf.parts
-                if isinstance(t, torch.Tensor) and t.is_cuda]
+        cuda = [t for lf in leaves for t in lf.parts if _on_card(t)]
         n = max((t.numel() * t.element_size() for t in cuda), default=0)
         self.buf = torch.empty(n, dtype=torch.uint8, pin_memory=bool(cuda))
 
     def bytes_for(self, t, n: int) -> torch.Tensor:
         """``n`` bytes of host memory for a part bound to or from ``t``."""
-        if isinstance(t, torch.Tensor) and t.is_cuda and \
-                n <= self.buf.numel():
+        if _on_card(t) and n <= self.buf.numel():
             return self.buf[:n]
         return torch.empty(n, dtype=torch.uint8)
 
 
-def _write_leaf(path: str, leaf: Leaf, staging: _Staging) -> None:
-    """The leaf as one ``.npy`` file, written one part at a time."""
-    with open(path, "wb") as f:
-        np.lib.format.write_array_header_1_0(f, {
-            "descr": np.lib.format.dtype_to_descr(leaf.dtype),
-            "fortran_order": False, "shape": leaf.shape})
+def _write_leaf(path: str | None, leaf: Leaf, staging: _Staging) -> None:
+    """The leaf as one ``.npy`` file, written one part at a time; a
+    ``DTensor`` part gathered whole first. ``path=None``: gather only
+    (a rank other than the writer)."""
+    with open(path, "wb") if path else contextlib.nullcontext() as f:
+        if f:
+            np.lib.format.write_array_header_1_0(f, {
+                "descr": np.lib.format.dtype_to_descr(leaf.dtype),
+                "fortran_order": False, "shape": leaf.shape})
         for t in leaf.parts:
-            if isinstance(t, torch.Tensor) and t.is_cuda:
+            if is_dtensor(t):
+                t = t.full_tensor()
+            if not f:
+                continue
+            if _on_card(t):
                 flat = staging.bytes_for(t, t.numel() * t.element_size())
                 flat.view(t.dtype).view(t.shape).copy_(t)
                 f.write(memoryview(flat.numpy()))
@@ -224,14 +267,19 @@ def _read_parts(path: str, leaf: Leaf, staging: _Staging):
 def save_checkpoint(directory: str, step: int, tree, extra: dict | None
                     = None, keep: int = 3) -> str:
     """Write ``tree`` as ``<directory>/step_<step>`` (atomically), keep
-    the newest ``keep`` checkpoints; returns the checkpoint's path."""
-    os.makedirs(directory, exist_ok=True)
+    the newest ``keep`` checkpoints; returns the checkpoint's path. A
+    tree with ``DTensor``s is saved by every rank together, rank 0
+    writing (see the module docstring)."""
+    leaves = reference_leaves(tree)
+    sharded = _sharded(leaves)
+    writer = not sharded or _rank() == 0
     tmp = os.path.join(directory, f"tmp.{step}")
     final = os.path.join(directory, f"step_{step:08d}")
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
-    leaves = reference_leaves(tree)
+    if writer:
+        os.makedirs(directory, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
     staging = _Staging(leaves)
     manifest = {
         "step": step,
@@ -241,16 +289,20 @@ def save_checkpoint(directory: str, step: int, tree, extra: dict | None
         "leaves": [],
     }
     for i, leaf in enumerate(leaves):
-        _write_leaf(os.path.join(tmp, f"leaf_{i:05d}.npy"), leaf, staging)
+        _write_leaf(os.path.join(tmp, f"leaf_{i:05d}.npy") if writer
+                    else None, leaf, staging)
         manifest["leaves"].append({"dtype": str(leaf.dtype),
                                    "shape": list(leaf.shape),
                                    "name": leaf.name})
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.replace(tmp, final)                      # atomic publish
-    _retain(directory, keep)
+    if writer:
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)                  # atomic publish
+        _retain(directory, keep)
+    if sharded:
+        _barrier()
     return final
 
 
@@ -276,11 +328,16 @@ def checkpoint_bytes(directory: str, step: int) -> int:
                for f in os.listdir(path))
 
 
-def load_checkpoint(directory: str, tree_like, step: int | None = None):
+def load_checkpoint(directory: str, tree_like, step: int | None = None,
+                    shardings=None):
     """Restore into ``tree_like`` (shapes must match), in place: every
     tensor of it gets the checkpoint's values on its own device and in
-    its own dtype. Returns (the tree, the step, ``extra``), each
-    integer leaf (a seed) replaced by the seed of the stored key."""
+    its own dtype, a ``DTensor`` its own shards of them. Returns (the
+    tree, the step, ``extra``), each integer leaf (a seed) replaced by
+    the seed of the stored key. ``shardings`` (a
+    `sharding.state.StateShardings`), as the reference's argument,
+    re-shards onto the current mesh: each plain tensor it gives a spec is
+    placed there after loading (`sharding.state.distribute_state`)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -301,15 +358,21 @@ def load_checkpoint(directory: str, tree_like, step: int | None = None):
                 seeds[leaf.name] = _seed_of_key(host)
                 continue
             with torch.no_grad():
-                t.copy_(host)
-    return (_with_seeds(tree_like, seeds), manifest["step"],
-            manifest.get("extra", {}))
+                if is_dtensor(t):
+                    t.to_local().copy_(_local_part(host, t))
+                else:
+                    t.copy_(host)
+    tree = _with_seeds(tree_like, seeds)
+    if shardings is not None:
+        from repro_torch.sharding.state import distribute_state
+        tree = distribute_state(tree, shardings)
+    return tree, manifest["step"], manifest.get("extra", {})
 
 
 def differing_leaves(directory: str, tree, step: int) -> list[str]:
     """The names of the leaves of ``tree`` that differ from the checkpoint
     of ``step``, compared exactly (``torch.equal``) on each tensor's own
-    device, one layer at a time."""
+    device, one layer at a time; a ``DTensor`` by this rank's shards."""
     path = os.path.join(directory, f"step_{step:08d}")
     leaves = reference_leaves(tree)
     staging = _Staging(leaves)
@@ -318,7 +381,9 @@ def differing_leaves(directory: str, tree, step: int) -> list[str]:
         try:
             same = all(
                 np.array_equal(host, t) if isinstance(t, np.ndarray) else
-                host.dtype == t.dtype and torch.equal(host.to(t.device), t)
+                host.dtype == t.dtype and (
+                    torch.equal(_local_part(host, t), t.to_local())
+                    if is_dtensor(t) else torch.equal(host.to(t.device), t))
                 for t, host in _read_parts(
                     os.path.join(path, f"leaf_{i:05d}.npy"), leaf, staging))
         except ValueError:
@@ -342,8 +407,8 @@ class CheckpointManager:
                                    self.keep)
         return None
 
-    def restore_or_init(self, tree_init):
+    def restore_or_init(self, tree_init, shardings=None):
         step = latest_step(self.directory)
         if step is None:
             return tree_init, 0, {}
-        return load_checkpoint(self.directory, tree_init, step)
+        return load_checkpoint(self.directory, tree_init, step, shardings)

@@ -21,15 +21,27 @@ What the record holds that the reference's does not, and why:
     so ``flops_per_device`` is the global count over the mesh size, and
     only the ops FlopCounterMode knows are counted (matmuls, convolutions,
     attention), not elementwise work;
-  * ``collective_bytes_per_device`` is null, with
-    ``collective_reason``: without a partitioned program there are no
-    collectives to read; `roofline.roofline_terms` leaves that term out;
+  * ``collective_bytes_per_device``, by kind (all-gather, all-reduce,
+    reduce-scatter, all-to-all), is what one step issues with the plan
+    inside the forward (``shard_fn``), the parameters, state, inputs and
+    caches laid as ``DTensor``s on the fake mesh: the result bytes of
+    every functional collective DTensor dispatches (`CollectiveBytes`),
+    as the reference sums the result shapes of its HLO's collectives,
+    counted at 1 and 2 layer units and extrapolated with the same clamp
+    as the flops; beside them ``collective_link_bytes_per_device``, the
+    bytes a device receives over its links for them in a ring (an
+    all-gather's result less its own shard, a reduce-scatter's input
+    less its own, twice that for an all-reduce). On a mesh of host ranks
+    DTensor moves a shard from one
+    dimension to another by an all-gather and a slice (gloo has no
+    all-to-all); the count books that move as the all-to-all a card mesh
+    issues, with its output's bytes. Where the
+    step cannot run on the fake mesh the bytes are null and
+    ``collective_reason`` names the op, as ``flops_error`` does;
   * ``bytes_per_device`` is the step's inputs, parameters, state and
     caches, each read or written once (``bytes_basis``): a lower bound on
     the memory term; temporaries are not measured (``memory.temp_bytes``
     null);
-  * the plan does not reach the model's forward here (no ``shard_fn``
-    inside it): the shapes come from the placements alone.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch glm4-9b \\
         --shape decode_32k --out DIR
@@ -42,6 +54,7 @@ nowhere else.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -51,6 +64,7 @@ import time
 import traceback
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import ARCH_IDS, SHAPES, applicable_shapes, \
     get_config
@@ -59,9 +73,6 @@ from repro_torch.param_names import reference_leaf
 from repro_torch.sharding import rules
 
 META = torch.device("meta")
-COLLECTIVE_REASON = ("no partitioned program is lowered: the forward runs "
-                     "on meta tensors without shard_fn, so there are no "
-                     "collectives to count")
 BYTES_BASIS = ("inputs, parameters, optimizer state and caches per device, "
                "each read or written once; temporaries not measured")
 
@@ -159,23 +170,23 @@ def _leaves(tree, prefix: str = ""):
         yield from _leaves(sub, f"{prefix}.{k}" if prefix else str(k))
 
 
+def _cache_spec(t: torch.Tensor, plan, mesh) -> tuple:
+    nd = t.ndim
+    kind = {5: "ssm_h" if t.dtype == torch.float32 else "kv",
+            4: "ssm_conv", 2: "kv_len"}.get(nd)
+    if kind is not None:
+        return sanitize(plan.cache_spec(kind)[:nd], t.shape, mesh)
+    return plan.batch_spec() if nd == 3 else ()
+
+
 def cache_entries(caches, plan, mesh) -> dict:
     """The reference's cache shardings (``_cache_shardings``): by rank and
     dtype, a 5-d float32 tensor is an SSM state, another 5-d one a KV
     cache, 4-d an SSM conv state, 2-d the KV lengths, 3-d (the encoder's
     memory) the batch spec as it is, anything else replicated; a cache
     spec is cut to the tensor's rank and sanitized."""
-    out = {}
-    for name, t in _leaves(caches):
-        nd = t.ndim
-        kind = {5: "ssm_h" if t.dtype == torch.float32 else "kv",
-                4: "ssm_conv", 2: "kv_len"}.get(nd)
-        if kind is not None:
-            spec = sanitize(plan.cache_spec(kind)[:nd], t.shape, mesh)
-        else:
-            spec = plan.batch_spec() if nd == 3 else ()
-        out[name] = _entry(t, spec, mesh)
-    return out
+    return {name: _entry(t, _cache_spec(t, plan, mesh), mesh)
+            for name, t in _leaves(caches)}
 
 
 STEP_CFG = dict(remat=True, microbatches=1)
@@ -208,6 +219,146 @@ def _step_flops(cfg: ModelConfig, shape: ShapeSpec) -> float:
     return float(counter.get_total_flops())
 
 
+#: The functional collectives DTensor dispatches, by the reference's
+#: names of their kinds.
+COLLECTIVE_KINDS = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all"}
+
+
+#: The bytes each device receives over its links in a ring collective
+#: of n ranks, per byte of its result.
+LINK_SHARE = {"all-gather": lambda n: (n - 1) / n,
+              "all-to-all": lambda n: (n - 1) / n,
+              "reduce-scatter": lambda n: n - 1,
+              "all-reduce": lambda n: 2 * (n - 1) / n}
+
+
+def _group_size(func, args, kwargs) -> int:
+    """The ranks of a functional collective's group, from its arguments."""
+    bound = dict(zip((a.name for a in func._schema.arguments), args))
+    bound.update(kwargs or {})
+    if "group_size" in bound:
+        return int(bound["group_size"])
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return _resolve_process_group(bound["group_name"]).size()
+
+
+class CollectiveBytes(TorchDispatchMode):
+    """Sums, by kind (`COLLECTIVE_KINDS`) and per device, the result
+    bytes of every collective dispatched under it (``bytes``: the local
+    tensors DTensor hands its collectives, the reference's measure) and
+    the bytes a device receives over its links for them in a ring
+    (``link_bytes``, `LINK_SHARE`). A ``DTensor`` op is let through
+    first (``NotImplemented``), as ``CommDebugMode`` does, so that the
+    mode sees the collectives it desugars into."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes: dict[str, float] = {}
+        self.link_bytes: dict[str, float] = {}
+        self._inside = 0
+
+    def add(self, kind: str, out, ranks: int) -> None:
+        if self._inside:
+            return
+        n = float(sum(t.numel() * t.element_size()
+                      for t in torch.utils._pytree.tree_leaves(out)
+                      if isinstance(t, torch.Tensor)))
+        self.bytes[kind] = self.bytes.get(kind, 0.0) + n
+        self.link_bytes[kind] = self.link_bytes.get(kind, 0.0) + \
+            n * LINK_SHARE[kind](ranks)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        ns, _, name = func._schema.name.partition("::")
+        if ns in ("_c10d_functional", "_dtensor") and \
+                name in COLLECTIVE_KINDS:
+            self.add(COLLECTIVE_KINDS[name], out,
+                     _group_size(func, args, kwargs))
+        return out
+
+    @contextlib.contextmanager
+    def host_all_to_all(self):
+        """On a mesh of host ranks DTensor's shard-to-shard move is an
+        all-gather and a slice: counted here as the all-to-all that a
+        card mesh issues (its output's bytes), the all-gather inside it
+        not counted."""
+        from torch.distributed.tensor import placement_types
+        orig = placement_types.shard_dim_alltoall
+
+        def counted(input, gather_dim, shard_dim, mesh, mesh_dim):
+            self._inside += 1
+            try:
+                out = orig(input, gather_dim, shard_dim, mesh, mesh_dim)
+            finally:
+                self._inside -= 1
+            self.add("all-to-all", out, mesh.size(mesh_dim))
+            return out
+
+        placement_types.shard_dim_alltoall = counted
+        try:
+            yield
+        finally:
+            placement_types.shard_dim_alltoall = orig
+
+
+def _step_collectives(cfg: ModelConfig, shape: ShapeSpec,
+                      mesh) -> tuple[dict, dict]:
+    """(result bytes, link bytes) per device, by kind, of the collectives
+    one step of ``cfg`` issues on ``mesh`` with the plan inside the
+    forward (`CollectiveBytes`): the parameters,
+    AdamW moments, inputs (rank >= 2 on the sanitized batch spec) and the
+    decode step's caches (`cache_entries`' specs) as ``DTensor``s on meta
+    tensors."""
+    from repro_torch.models import transformer
+    from repro_torch.sharding.state import map_state, place
+    from repro_torch.train import optimizer, steps
+
+    plan = rules.make_plan(mesh, cfg, shape)
+    step_cfg = steps.StepConfig(**STEP_CFG)
+    model = map_state(
+        transformer.init_model(cfg, None, torch.float32, META),
+        lambda n, p: place(p, mesh, plan.param_spec_for(n, p)))
+    batch = {k: place(v, mesh, sanitize(plan.batch_spec(), v.shape, mesh)
+                      if v.ndim >= 2 else ())
+             for k, v in input_specs(cfg, shape).items()}
+    counter = CollectiveBytes()
+    with counter, counter.host_all_to_all():
+        if shape.kind == "train":
+            params = dict(model.named_parameters())
+            state = steps.TrainState(params=model,
+                                     opt=optimizer.init_adamw(params),
+                                     residuals=None, rng=0)
+            steps.make_train_step(cfg, optimizer.OptimizerConfig(),
+                                  step_cfg, plan.shard_fn())(state, batch)
+        elif shape.kind == "prefill":
+            steps.make_prefill_step(cfg, step_cfg, plan.shard_fn())(
+                model, batch)
+        else:
+            caches = map_state(
+                steps.init_caches(cfg, shape.global_batch, shape.seq_len,
+                                  device=META),
+                lambda n, t: place(t, mesh, _cache_spec(t, plan, mesh)))
+            steps.make_decode_step(cfg, step_cfg, plan.shard_fn())(
+                model, batch, caches)
+    return counter.bytes, counter.link_bytes
+
+
+def _op_error(e: BaseException) -> str:
+    frame = traceback.extract_tb(e.__traceback__)[-1]
+    return (f"{type(e).__name__} at {frame.name} "
+            f"({os.path.basename(frame.filename)}:{frame.lineno}): "
+            f"{e}")[:500]
+
+
 def lower_cell(arch_id: str, shape_name: str, *, multi_pod: bool, mesh,
                cfg: ModelConfig | None = None) -> dict:
     """The record of one cell on ``mesh`` (the production mesh)."""
@@ -235,20 +386,33 @@ def lower_cell(arch_id: str, shape_name: str, *, multi_pod: bool, mesh,
         c1 = dataclasses.replace(cfg, n_layers=unit)
         c2 = dataclasses.replace(cfg, n_layers=2 * unit)
         n_units = cfg.n_layers / unit
+    def extrap(a, b):
+        # clamp: one-time (depth-independent) costs can make b < a;
+        # never extrapolate below the measured floor
+        return max(a + (n_units - 1.0) * (b - a), min(a, b), 0.0)
+
     flops = f1 = f2 = flops_error = None
     t_flops = time.monotonic()
     try:
         f1 = _step_flops(c1, shape)
         f2 = _step_flops(c2, shape)
-        # clamp: one-time (depth-independent) costs can make f2 < f1;
-        # never extrapolate below the measured floor
-        flops = max(f1 + (n_units - 1.0) * (f2 - f1), min(f1, f2), 0.0)
+        flops = extrap(f1, f2)
     except NotImplementedError as e:        # an op with no meta kernel
-        frame = traceback.extract_tb(e.__traceback__)[-1]
-        flops_error = (f"{type(e).__name__} at {frame.name} "
-                       f"({os.path.basename(frame.filename)}:"
-                       f"{frame.lineno}): {e}")[:500]
+        flops_error = _op_error(e)
     t_flops = time.monotonic() - t_flops
+
+    coll = link = coll1 = coll2 = coll_error = None
+    t_coll = time.monotonic()
+    try:
+        (coll1, link1), (coll2, link2) = (_step_collectives(c, shape, mesh)
+                                          for c in (c1, c2))
+        coll, link = ({k: extrap(a.get(k, 0.0), b.get(k, 0.0))
+                       for k in sorted(set(a) | set(b))}
+                      for a, b in ((coll1, coll2), (link1, link2)))
+    except NotImplementedError as e:
+        # an op without a meta kernel or a DTensor sharding strategy
+        coll_error = _op_error(e)
+    t_coll = time.monotonic() - t_coll
 
     model = transformer.init_model(cfg, None, torch.float32, META)
     # the decode step's input caches; the prefill's are its output
@@ -290,8 +454,9 @@ def lower_cell(arch_id: str, shape_name: str, *, multi_pod: bool, mesh,
         "bytes_per_device": sum(by_kind.values()),
         "bytes_basis": BYTES_BASIS,
         "bytes_per_device_by_kind": by_kind,
-        "collective_bytes_per_device": None,
-        "collective_reason": COLLECTIVE_REASON,
+        "collective_bytes_per_device": coll,
+        "collective_link_bytes_per_device": link,
+        **({"collective_reason": coll_error} if coll is None else {}),
         "flops_rolled_module": None,
         "memory": {"argument_bytes": argument,
                    "output_bytes": 0 if shape.is_decode
@@ -299,10 +464,12 @@ def lower_cell(arch_id: str, shape_name: str, *, multi_pod: bool, mesh,
                    "temp_bytes": None, "peak_bytes": None},
         "seconds": round(time.monotonic() - t0, 1),
         "seconds_counting_flops": round(t_flops, 1),
+        "seconds_counting_collectives": round(t_coll, 1),
         "params": cfg.param_count(),
         "active_params": cfg.active_param_count(),
         "cost_extrapolation": {"unit_layers": unit, "n_units": n_units,
-                               "f1": f1, "f2": f2},
+                               "f1": f1, "f2": f2, "coll1": coll1,
+                               "coll2": coll2},
         "shapes": {"inputs": inputs, "params": params, "state": state,
                    "caches": cache},
     }

@@ -55,11 +55,18 @@ def make_production_mesh(*, multi_pod: bool = False,
     """The production ``DeviceMesh`` over the default process group, whose
     world size must be 256 (512 with ``multi_pod``). ``device_type`` is
     the ranks' device; a dry run on the fake backend passes ``"cpu"``."""
+    import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     shape, axes = PRODUCTION_SHAPES[multi_pod]
     want = 1
     for s in shape:
         want *= s
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(
+            f"the {'multi' if multi_pod else 'single'}-pod mesh "
+            f"{dict(zip(axes, shape))} needs {want} ranks, and there is no "
+            f"default process group (launch {want} ranks, e.g. with "
+            f"torchrun, or call torch.distributed.init_process_group)")
     got = _group_size()
     if got != want:
         raise ValueError(f"the {'multi' if multi_pod else 'single'}-pod mesh "

@@ -11,12 +11,17 @@ plus MODEL_FLOPS (6·N·D dense / 6·N_active·D MoE) and the useful-compute
 ratio MODEL_FLOPS / counted flops (catches remat, padding and replication
 waste).
 
-The port's dry-run lowers no partitioned program, so it has no collective
-bytes: a record whose ``collective_bytes_per_device`` is null has no
-collective term, and `roofline_terms` says so (``t_collective_s`` null,
-the record's reason beside it) rather than reading it as 0 bytes. Its
-``bytes_per_device`` are the step's arguments read once (a lower bound on
-the memory term) and its temporaries are not measured.
+The port's dry run counts the collectives one step issues with the plan
+inside the forward (DTensor's functional collectives on the fake mesh,
+`dryrun.CollectiveBytes`); the collective term reads them over one card's
+NVLink rate, with `launch.mesh`'s caveat that a 16-wide ``model`` axis
+spans two 8-card hosts, whose network is slower. A record whose
+``collective_bytes_per_device`` is null (the step could not run on the
+fake mesh) has no collective term, and `roofline_terms` says so
+(``t_collective_s`` null, the record's reason beside it) rather than
+reading it as 0 bytes. Its ``bytes_per_device`` are the step's arguments
+read once (a lower bound on the memory term) and its temporaries are not
+measured.
 
     PYTHONPATH=src python -m repro_torch.launch.roofline --reports DIR
 """

@@ -10,8 +10,8 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from repro_torch.models.layers import Dense, apply_rope, dense, \
-    init_parameters
+from repro_torch.models.layers import Dense, Shard, apply_rope, dense, \
+    init_parameters, no_shard
 
 
 class KVCache(NamedTuple):
@@ -58,15 +58,22 @@ def _repeat_kv(x: torch.Tensor, rep: int) -> torch.Tensor:
 
 
 def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool, kv_length=None) -> torch.Tensor:
+                  causal: bool, kv_length=None, k_offset: int = 0,
+                  reduce=None) -> torch.Tensor:
     """q: (B,Lq,H,hd); k,v: (B,Lk,H,hd). Returns (B,Lq,H,hd). Scores and
-    softmax in float32, the probabilities cast back to q's dtype."""
+    softmax in float32, the probabilities cast back to q's dtype.
+
+    k and v may be one slice of the keys along the sequence, starting at
+    position ``k_offset``, with ``reduce(op, t)`` reducing ``t`` by
+    ``op`` ("max" or "sum") over the holders of every slice: then the
+    softmax takes the max and the sum over every slice, and each slice's
+    share of the output is summed (the split-K form of a decode step)."""
     b, lq, h, hd = q.shape
     lk = k.shape[1]
     scale = 1.0 / math.sqrt(hd)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                           k.to(torch.float32)) * scale
-    kpos = torch.arange(lk, device=q.device)
+    kpos = k_offset + torch.arange(lk, device=q.device)
     neg = torch.finfo(torch.float32).min
     if causal:
         qpos = torch.arange(lq, device=q.device)
@@ -75,8 +82,14 @@ def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kv_length is not None:
         valid = kpos[None, :] < kv_length[:, None]
         scores = scores.masked_fill(~valid[:, None, None, :], neg)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    if reduce is None:
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    m = reduce("max", torch.amax(scores, dim=-1, keepdim=True))
+    p = torch.exp(scores - m)
+    probs = (p / reduce("sum", torch.sum(p, dim=-1, keepdim=True))).to(
+        q.dtype)
+    return reduce("sum", torch.einsum("bhqk,bkhd->bqhd", probs, v))
 
 
 def dot_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -120,6 +133,21 @@ def dot_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2).to(q.dtype)
 
 
+def attend(q, k, v, *, causal: bool, kv_length=None, chunked: bool = False,
+           shard: Shard = no_shard) -> torch.Tensor:
+    """`dot_attention` (or `dot_attention_chunked`) of q, k, v, through
+    ``shard.attend``: on a mesh, on each rank's own shards."""
+    def fn(q, k, v, kv_length, k_offset=0, reduce=None):
+        if chunked:
+            if reduce is not None:
+                raise ValueError("the chunked attention takes whole keys")
+            return dot_attention_chunked(q, k, v, causal=causal,
+                                         kv_length=kv_length)
+        return dot_attention(q, k, v, causal=causal, kv_length=kv_length,
+                             k_offset=k_offset, reduce=reduce)
+    return shard.attend(fn, q, k, v, kv_length)
+
+
 def quantize_kv(x: torch.Tensor):
     """Per-(position, head) symmetric int8 KV quantization."""
     xf = x.to(torch.float32)
@@ -149,13 +177,14 @@ def _flash(q, kf, vf) -> torch.Tensor:
 def attention(params: Attention, x: torch.Tensor, *, n_heads: int,
               n_kv_heads: int, head_dim: int, rope_theta: float,
               causal: bool = True, cache: KVCache | None = None,
-              use_flash: bool = False):
+              use_flash: bool = False, shard: Shard = no_shard):
     """Returns (out, new_cache). Prefill: cache=None, full seq. Decode:
     x is (B, 1, D) and cache holds past K/V."""
     b, l, _ = x.shape
     q = dense(params.wq, x).reshape(b, l, n_heads, head_dim)
     k = dense(params.wk, x).reshape(b, l, n_kv_heads, head_dim)
     v = dense(params.wv, x).reshape(b, l, n_kv_heads, head_dim)
+    q = shard("attn_q", q)
     rep = n_heads // n_kv_heads
     if cache is None:
         pos = torch.arange(l, device=x.device)
@@ -165,10 +194,10 @@ def attention(params: Attention, x: torch.Tensor, *, n_heads: int,
         kf, vf = _repeat_kv(k, rep), _repeat_kv(v, rep)
         if use_flash and causal and l >= FLASH_MIN_LEN:
             out = _flash(q, kf, vf)
-        elif ATTN_IMPL == "chunked" and l >= 2048:
-            out = dot_attention_chunked(q, kf, vf, causal=causal)
         else:
-            out = dot_attention(q, kf, vf, causal=causal)
+            out = attend(q, kf, vf, causal=causal,
+                         chunked=ATTN_IMPL == "chunked" and l >= 2048,
+                         shard=shard)
         length = torch.full((b,), l, dtype=torch.int32, device=x.device)
         if KV_QUANT:
             qk, sk = quantize_kv(k)
@@ -184,14 +213,17 @@ def attention(params: Attention, x: torch.Tensor, *, n_heads: int,
             q = apply_rope(q, pos[:, None], rope_theta)
             k = apply_rope(k, pos[:, None], rope_theta)
         # the reference's one-hot(length) write: a row whose length has
-        # reached max_seq gets an all-zero row, so its write is dropped
+        # reached max_seq gets an all-zero row, so its write is dropped;
+        # the new row and the one-hot on the cache's layout, so that the
+        # write runs on each rank's own rows of the cache
+        k, v = shard.like(k, cache.k), shard.like(v, cache.v)
         s = cache.k.shape[1]
         oh = (torch.arange(s, device=x.device)[None, :] ==
               cache.length[:, None]).to(torch.float32)     # (B, S)
         if cache.k_scale is not None:
             qk, sk = quantize_kv(k)
             qv, sv = quantize_kv(v)
-            ohq = oh[:, :, None, None]
+            ohq = shard.like(oh[:, :, None, None], cache.k)
             k_cache = cache.k + (ohq * qk.to(torch.float32)).to(cache.k.dtype)
             v_cache = cache.v + (ohq * qv.to(torch.float32)).to(cache.v.dtype)
             k_scale = cache.k_scale + ohq * sk
@@ -202,15 +234,17 @@ def attention(params: Attention, x: torch.Tensor, *, n_heads: int,
                                 length=cache.length + 1,
                                 k_scale=k_scale, v_scale=v_scale)
         else:
-            ohq = oh[:, :, None, None].to(cache.k.dtype)
+            ohq = shard.like(oh[:, :, None, None].to(cache.k.dtype),
+                             cache.k)
             k_cache = cache.k + ohq * k.to(cache.k.dtype)
             v_cache = cache.v + ohq * v.to(cache.v.dtype)
             kf = _repeat_kv(k_cache, rep)
             vf = _repeat_kv(v_cache, rep)
             new_cache = KVCache(k=k_cache, v=v_cache,
                                 length=cache.length + 1)
-        out = dot_attention(q, kf, vf, causal=False,
-                            kv_length=cache.length + 1)
+        out = attend(q, kf, vf, causal=False, kv_length=cache.length + 1,
+                     shard=shard)
+    out = shard("attn_out", out)
     out = out.reshape(b, l, n_heads * head_dim)
     return dense(params.wo, out), new_cache
 

@@ -11,11 +11,68 @@ this is the serving half of the runtime.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+class Shard:
+    """The forward's ``shard``: ``shard(logical, x)`` constrains the
+    activation ``x`` at one of the reference's logical names, and the
+    methods run the few steps whose layout a mesh must choose itself. This
+    default changes nothing: every activation as it is, every step on its
+    plain tensors. A mesh run passes the plan's
+    (`sharding.rules.ShardingPlan.shard_fn`), which lays ``DTensor``s on
+    the plan's specs and runs these steps on each rank's shards."""
+
+    def __call__(self, logical: str, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def scope(self, *tensors):
+        """The context a forward or a backward over ``tensors`` runs in."""
+        return contextlib.nullcontext()
+
+    def rows(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """The embedding lookup ``table[ids]``."""
+        return table[ids]
+
+    def weight(self, w: torch.Tensor) -> torch.Tensor:
+        """A weight as a product reads it."""
+        return w
+
+    def like(self, x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+        """``x`` on ``ref``'s layout, dimension for dimension (a
+        dimension of one, which broadcasts against ``ref``'s, whole), so
+        that a step between the two runs on each rank's own shards (a
+        decode step's write of its new row into the cache)."""
+        return x
+
+    def attend(self, fn, q, k, v, kv_length=None):
+        """``fn(q, k, v, kv_length)``: an attention over (B, L, H, hd)
+        operands, which may take ``k_offset`` (the position of k's first
+        row) and ``reduce(op, t)`` (``op`` "max" or "sum" over the ranks
+        that hold the other rows of k and v) when k and v are split along
+        their sequence."""
+        return fn(q, k, v, kv_length)
+
+    def on_batch(self, fn, lead, args, batch_axes, out_axes):
+        """``fn(*args)``, which treats every batch row on its own:
+        ``batch_axes`` names each argument's batch axis (None for one
+        without), ``out_axes`` each output's; ``lead`` is the argument
+        whose layout the batch follows."""
+        return fn(*args)
+
+    def whole(self, fn, *args):
+        """``fn(*args)`` on whole tensors: on a mesh every rank runs it on
+        the same, replicated values."""
+        return fn(*args)
+
+
+#: The forward's default ``shard``.
+no_shard = Shard()
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -39,15 +96,34 @@ def truncated_normal_(t: torch.Tensor, std: float,
     return t
 
 
-def init_parameters(module: nn.Module,
-                    generator: torch.Generator | None) -> nn.Module:
+def init_parameters(module: nn.Module, generator: torch.Generator | None,
+                    place=None) -> nn.Module:
     """Draw every parameter of ``module`` from ``generator``: each
     submodule's ``reset_parameters`` fills its own parameters, in
-    ``modules()`` order."""
-    for m in module.modules():
+    ``modules()`` order. A parameter on the meta device is allocated on
+    the generator's device just before its submodule draws it, so a
+    module built on meta is drawn one submodule at a time. ``place(name,
+    p)``, when given, is called on each parameter right after its
+    submodule draws it and its result takes the parameter's place (a mesh
+    run lays it on its shards, `sharding.state`); the drawn tensor is then
+    freed before the next submodule is drawn."""
+    for prefix, m in module.named_modules():
         reset = getattr(m, "reset_parameters", None)
-        if reset is not None:
-            reset(generator)
+        own = list(m.named_parameters(recurse=False))
+        if reset is None:
+            if own:
+                raise ValueError(f"{prefix}: parameters without "
+                                 f"reset_parameters")
+            continue
+        for attr, p in own:
+            if p.is_meta:
+                setattr(m, attr, _param(p.shape, p.dtype, generator.device))
+        reset(generator)
+        if place is not None:
+            for attr, p in list(m.named_parameters(recurse=False)):
+                name = f"{prefix}.{attr}" if prefix else attr
+                setattr(m, attr, nn.Parameter(place(name, p),
+                                              requires_grad=False))
     return module
 
 
@@ -150,13 +226,15 @@ def init_mlp(generator, d_model: int, d_ff: int, gated: bool,
                                device=device), generator)
 
 
-def mlp(params: MLP, x: torch.Tensor, gated: bool) -> torch.Tensor:
+def mlp(params: MLP, x: torch.Tensor, gated: bool,
+        shard=no_shard) -> torch.Tensor:
     h = dense(params.up, x)
     if gated:
         h = F.silu(dense(params.gate, x)) * h
     else:
         # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(h, approximate="tanh")
+    h = shard("ffn_hidden", h)
     return dense(params.down, h)
 
 
@@ -203,12 +281,12 @@ def init_embedding(generator, vocab: int, d_model: int, dtype=torch.float32,
                                      device=device), generator)
 
 
-def embed(params: Embedding, ids: torch.Tensor,
-          dtype=torch.bfloat16) -> torch.Tensor:
+def embed(params: Embedding, ids: torch.Tensor, dtype=torch.bfloat16,
+          shard: Shard = no_shard) -> torch.Tensor:
     """Rows of the table in ``dtype``; gathered before the cast, which
     gives the reference's cast-then-gather values without casting the
     whole table."""
-    return params.table[ids].to(dtype)
+    return shard.rows(params.table, ids).to(dtype)
 
 
 def unembed(params: Embedding, x: torch.Tensor) -> torch.Tensor:

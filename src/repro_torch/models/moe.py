@@ -22,7 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import Dense, _param, init_parameters
+from repro_torch.models.layers import Dense, Shard, _param, \
+    init_parameters, no_shard
 
 MOE_DISPATCH = "scatter"      # "scatter" | "einsum"
 
@@ -77,16 +78,17 @@ def init_moe(generator, d_model: int, d_ff: int, n_experts: int,
                                dtype=dtype, device=device), generator)
 
 
-def _expert_ffn(bank: ExpertBank, x: torch.Tensor,
-                gated: bool) -> torch.Tensor:
+def _expert_ffn(bank: ExpertBank, x: torch.Tensor, gated: bool,
+                shard: Shard = no_shard) -> torch.Tensor:
     """x: (E, C, D) -> (E, C, D) with per-expert weights (E, D, F)."""
-    up = torch.bmm(x, bank.up.w.to(x.dtype))
+    w = lambda ew: shard.weight(ew.w).to(x.dtype)
+    up = torch.bmm(x, w(bank.up))
     if gated:
-        h = F.silu(torch.bmm(x, bank.gate.w.to(x.dtype))) * up
+        h = F.silu(torch.bmm(x, w(bank.gate))) * up
     else:
         # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(up, approximate="tanh")
-    return torch.bmm(h, bank.down.w.to(x.dtype))
+    return torch.bmm(h, w(bank.down))
 
 
 def top_k_experts(probs: torch.Tensor, k: int):
@@ -105,8 +107,14 @@ def route(params: MoE, tokens: torch.Tensor, *, n_experts: int,
     (T, K), gate_vals (T, K) float32 with dropped slots zeroed, the
     position of each slot in its expert's buffer (T, K), keep (T, K),
     capacity)."""
+    return _route(tokens, params.router.w, n_experts=n_experts,
+                  top_k=top_k, capacity_factor=capacity_factor)
+
+
+def _route(tokens, router_w, *, n_experts: int, top_k: int,
+           capacity_factor: float):
     n_tok = tokens.shape[0]
-    logits = tokens.to(torch.float32) @ params.router.w.to(torch.float32)
+    logits = tokens.to(torch.float32) @ router_w.to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = top_k_experts(probs, top_k)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
@@ -121,51 +129,78 @@ def route(params: MoE, tokens: torch.Tensor, *, n_experts: int,
 
 
 def moe(params: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
-        gated: bool, capacity_factor: float = 1.25):
+        gated: bool, capacity_factor: float = 1.25,
+        shard: Shard = no_shard):
     """x: (B, L, D). Returns (out, aux_loss): the routed (and shared)
-    experts' output and the Switch-style load-balancing loss."""
+    experts' output and the Switch-style load-balancing loss.
+
+    The routing, the dispatch into the experts' buffers and the combine
+    run through ``shard.whole``: on a mesh every rank routes every token
+    of the global batch, as the reference's capacity and positions count
+    them, and no layout of the scatter is left for DTensor to choose
+    (its strategies for ``index_add`` tie, and a tie broken differently
+    on two ranks sends them into different collectives). The experts run
+    on the plan's ``moe_expert_in`` / ``moe_expert_out`` layout."""
     b, l, d = x.shape
-    tokens = x.reshape(b * l, d)
     n_tok = b * l
-    probs, expert_idx, gate_vals, pos_in_expert, keep, capacity = route(
-        params, tokens, n_experts=n_experts, top_k=top_k,
-        capacity_factor=capacity_factor)
-    if MOE_DISPATCH == "scatter":
-        dest = expert_idx * capacity + torch.clamp_max(pos_in_expert,
-                                                       capacity - 1)
-        flat_dest = torch.where(keep, dest, n_experts * capacity).reshape(-1)
-        src = torch.arange(n_tok, device=x.device).repeat_interleave(top_k)
-        buf = torch.zeros((n_experts * capacity + 1, d), dtype=x.dtype,
-                          device=x.device)
-        buf.index_add_(0, flat_dest, tokens[src])
-        expert_in = buf[:-1].reshape(n_experts, capacity, d)
-        expert_out = _expert_ffn(params.experts, expert_in, gated)
-        flat_out = torch.cat([expert_out.reshape(n_experts * capacity, d),
-                              buf.new_zeros((1, d))])
-        picked = flat_out[flat_dest].reshape(n_tok, top_k, d)
-        out = torch.sum(picked * gate_vals[..., None].to(x.dtype), dim=1)
-    elif MOE_DISPATCH == "einsum":
+    scatter = MOE_DISPATCH == "scatter"
+    if MOE_DISPATCH not in ("scatter", "einsum"):
+        raise ValueError(f"MOE_DISPATCH {MOE_DISPATCH!r}")
+
+    def dispatch(x, router_w):
+        """(expert_in (E, C, D), what the combine needs, aux loss)."""
+        tokens = x.reshape(n_tok, d)
+        probs, expert_idx, gate_vals, pos_in_expert, keep, capacity = \
+            _route(tokens, router_w, n_experts=n_experts, top_k=top_k,
+                   capacity_factor=capacity_factor)
+        # load-balancing aux loss (Switch-style)
+        me = probs.mean(dim=0)
+        ce = F.one_hot(expert_idx[:, 0], n_experts).to(
+            torch.float32).mean(dim=0)
+        aux = n_experts * torch.sum(me * ce)
+        if scatter:
+            dest = expert_idx * capacity + torch.clamp_max(pos_in_expert,
+                                                           capacity - 1)
+            flat_dest = torch.where(keep, dest,
+                                    n_experts * capacity).reshape(-1)
+            src = torch.arange(n_tok, device=x.device).repeat_interleave(
+                top_k)
+            buf = torch.zeros((n_experts * capacity + 1, d), dtype=x.dtype,
+                              device=x.device)
+            buf.index_add_(0, flat_dest, tokens[src])
+            return buf[:-1].reshape(n_experts, capacity, d), \
+                (flat_dest, gate_vals), aux
         onehot = F.one_hot(expert_idx, n_experts).to(x.dtype)
         # a dropped slot's position is `capacity`: an all-zero row, as
         # jax.nn.one_hot gives for an index past its classes
         pos_oh = F.one_hot(torch.where(keep, pos_in_expert, capacity),
                            capacity + 1)[..., :capacity].to(x.dtype)
         disp = torch.einsum("tke,tkc->tec", onehot, pos_oh)
-        expert_in = torch.einsum("td,tec->ecd", tokens, disp)
-        expert_out = _expert_ffn(params.experts, expert_in, gated)
         combine = torch.einsum("tec,tk,tke->tec", disp,
                                gate_vals.to(x.dtype), onehot)
-        out = torch.einsum("ecd,tec->td", expert_out, combine)
-    else:
-        raise ValueError(f"MOE_DISPATCH {MOE_DISPATCH!r}")
+        return torch.einsum("td,tec->ecd", tokens, disp), (combine,), aux
+
+    def gather_back(expert_out, *how):
+        """The experts' outputs back at their tokens, (T, D)."""
+        if scatter:
+            flat_dest, gate_vals = how
+            flat_out = torch.cat([expert_out.reshape(-1, d),
+                                  expert_out.new_zeros((1, d))])
+            picked = flat_out[flat_dest].reshape(n_tok, top_k, d)
+            return torch.sum(picked * gate_vals[..., None].to(x.dtype),
+                             dim=1)
+        return torch.einsum("ecd,tec->td", expert_out, how[0])
+
+    expert_in, how, aux = shard.whole(dispatch, x, params.router.w)
+    expert_in = shard("moe_expert_in", expert_in)
+    expert_out = _expert_ffn(params.experts, expert_in, gated, shard)
+    expert_out = shard("moe_expert_out", expert_out)
+    out = shard.whole(gather_back, expert_out, *how)
 
     if hasattr(params, "shared"):
+        tokens = x.reshape(n_tok, d)
         n_sh = params.shared.up.w.shape[0]
         sh_in = tokens[None].expand(n_sh, n_tok, d)
-        out = out + _expert_ffn(params.shared, sh_in, gated).sum(dim=0)
-
-    # load-balancing aux loss (Switch-style)
-    me = probs.mean(dim=0)
-    ce = F.one_hot(expert_idx[:, 0], n_experts).to(torch.float32).mean(dim=0)
-    aux = n_experts * torch.sum(me * ce)
+        out = out + _expert_ffn(params.shared, sh_in, gated, shard).sum(
+            dim=0)
     return out.reshape(b, l, d), aux

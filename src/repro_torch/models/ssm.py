@@ -9,14 +9,15 @@ this module also holds its plain form.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import Dense, RMSNorm, _param, dense, \
-    init_parameters, rms_norm, truncated_normal_
+from repro_torch.models.layers import Dense, RMSNorm, Shard, _param, \
+    dense, init_parameters, no_shard, rms_norm, truncated_normal_
 
 
 class SSMState(NamedTuple):
@@ -218,17 +219,21 @@ def ssd_inputs(params: Mamba2, x: torch.Tensor, cfg,
 
 def mamba2_block(params: Mamba2, x: torch.Tensor, cfg, *,
                  state: SSMState | None = None, chunk: int = 256,
-                 use_kernel: bool = False):
+                 use_kernel: bool = False, shard: Shard = no_shard):
     """x: (B, L, D) (prefill) or (B, 1, D) with state (decode).
     Returns (out, new_state)."""
     bsz, l, _ = x.shape
     decode = state is not None and l == 1
     z, xs, dt, a, bmat, cmat, new_conv = ssd_inputs(
         params, x, cfg, state.conv if state is not None else None)
+    xs = shard("ssm_x", xs)
     if decode:
-        y, h_new = ssd_recurrent_step(
-            xs[:, 0], dt[:, 0], a, bmat[:, 0], cmat[:, 0], params.d_skip,
-            state.h)
+        # on a mesh each rank's batch rows, every head: DTensor would fold
+        # the batch and head axes into one for its batched product
+        args = (xs[:, 0], dt[:, 0], a, bmat[:, 0], cmat[:, 0],
+                params.d_skip, state.h)
+        y, h_new = shard.on_batch(ssd_recurrent_step, args[0], args,
+                                  (0, 0, None, 0, 0, None, 0), (0, 0))
         y = y[:, None]
     else:
         h0 = state.h if state is not None else None
@@ -237,9 +242,13 @@ def mamba2_block(params: Mamba2, x: torch.Tensor, cfg, *,
             padc = lambda t: F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad_to))
             xs, dt = padc(xs), padc(dt)
             bmat, cmat = padc(bmat), padc(cmat)
-        y, h_new = ssd_chunked(xs, dt, a, bmat, cmat, params.d_skip,
-                               chunk=min(chunk, xs.shape[1]), h0=h0,
-                               use_kernel=use_kernel)
+        ssd = functools.partial(ssd_chunked, chunk=min(chunk, xs.shape[1]),
+                                use_kernel=use_kernel)
+        # as the decode step's: each rank's batch rows, every head, the
+        # whole sequence (the chunks' recurrence runs along it)
+        args = (xs, dt, a, bmat, cmat, params.d_skip, h0)
+        y, h_new = shard.on_batch(lambda *t: ssd(*t[:6], h0=t[6]), xs, args,
+                                  (0, 0, None, 0, 0, None, 0), (0, 0))
         y = y[:, :l]
     y = y.reshape(bsz, l, -1)
     y = rms_norm(params.norm, y * F.silu(z.to(y.dtype)))

@@ -38,10 +38,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import Attention, _repeat_kv, attention, \
-    dot_attention
+from repro_torch.models.attention import Attention, _repeat_kv, attend, \
+    attention
 from repro_torch.models.layers import MLP, Embedding, RMSNorm, dense, \
-    embed, init_parameters, mlp, rms_norm, unembed
+    Shard, embed, init_parameters, mlp, no_shard, rms_norm, unembed
 from repro_torch.models.moe import MoE, moe
 from repro_torch.models.ssm import Mamba2, mamba2_block
 
@@ -145,13 +145,17 @@ class LM(nn.Module):
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator | None,
-               dtype=torch.float32, device=None) -> LM:
-    """The model with every weight drawn from ``generator`` (on
-    ``device``); ``generator=None`` leaves them uninitialised, for
+               dtype=torch.float32, device=None, place=None) -> LM:
+    """The model with every weight drawn from ``generator``, on its
+    device, one module at a time (`layers.init_parameters`, which hands
+    each drawn parameter to ``place`` when given); ``generator=None``
+    leaves them uninitialised on ``device``, for
     `convert.params_from_numpy` to fill (``device="meta"`` allocates
     nothing)."""
-    model = LM(cfg, dtype=dtype, device=device)
-    return model if generator is None else init_parameters(model, generator)
+    if generator is None:
+        return LM(cfg, dtype=dtype, device=device)
+    return init_parameters(LM(cfg, dtype=dtype, device="meta"), generator,
+                           place)
 
 
 # ---------------------------------------------------------------------------
@@ -176,7 +180,7 @@ def _stacked(per_layer: list):
 
 
 def _cross_attention(blk: CrossBlock, x, cfg: ModelConfig, memory,
-                     mem_cross_kv):
+                     mem_cross_kv, shard: Shard = no_shard):
     """The decoder's attention over the encoder's memory: K and V from
     ``memory`` (prefill) or the cache's ``mem_cross_kv`` (decode), no
     RoPE, no mask, the plain product as in the reference. Returns (x,
@@ -192,33 +196,34 @@ def _cross_attention(blk: CrossBlock, x, cfg: ModelConfig, memory,
     else:
         k, v = mem_cross_kv
     rep = cfg.n_heads // cfg.n_kv_heads
-    o = dot_attention(q, _repeat_kv(k, rep), _repeat_kv(v, rep),
-                      causal=False)
+    o = attend(q, _repeat_kv(k, rep), _repeat_kv(v, rep), causal=False,
+               shard=shard)
     return x + dense(blk.xattn.wo, o.reshape(b, l, -1)), (k, v)
 
 
 def _attn_block_apply(blk: AttnBlock, x, cfg: ModelConfig, cache, *,
                       causal: bool, use_flash: bool, memory=None,
-                      mem_cross_kv=None):
+                      mem_cross_kv=None, shard=no_shard):
     """Returns (x, new KV cache, the MoE aux loss or None, the cross K/V
     or None)."""
     h = rms_norm(blk.ln1, x, cfg.norm_eps)
     attn_out, new_cache = attention(
         blk.attn, h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-        causal=causal, cache=cache, use_flash=use_flash)
+        causal=causal, cache=cache, use_flash=use_flash, shard=shard)
     x = x + attn_out
     cross_kv = aux = None
     if memory is not None or mem_cross_kv is not None:
-        x, cross_kv = _cross_attention(blk, x, cfg, memory, mem_cross_kv)
+        x, cross_kv = _cross_attention(blk, x, cfg, memory, mem_cross_kv,
+                                       shard)
     h = rms_norm(blk.ln2, x, cfg.norm_eps)
     if hasattr(blk, "moe"):
         out, aux = moe(blk.moe, h, n_experts=cfg.n_experts, top_k=cfg.top_k,
-                       gated=cfg.gated_mlp)
+                       gated=cfg.gated_mlp, shard=shard)
         if hasattr(blk, "mlp"):                 # Arctic's dense residual
-            out = out + mlp(blk.mlp, h, cfg.gated_mlp)
+            out = out + mlp(blk.mlp, h, cfg.gated_mlp, shard)
     else:
-        out = mlp(blk.mlp, h, cfg.gated_mlp)
+        out = mlp(blk.mlp, h, cfg.gated_mlp, shard)
     return x + out, new_cache, aux, cross_kv
 
 
@@ -229,16 +234,17 @@ def _run(remat: bool, fn, *args):
         else fn(*args)
 
 
-def _attn_train(blk: AttnBlock, x, cfg, causal: bool, use_flash: bool):
+def _attn_train(blk: AttnBlock, x, cfg, causal: bool, use_flash: bool,
+                shard):
     """One attention block without caches: (x, the MoE aux loss or
     None)."""
     x, _, aux, _ = _attn_block_apply(blk, x, cfg, None, causal=causal,
-                                     use_flash=use_flash)
+                                     use_flash=use_flash, shard=shard)
     return x, aux
 
 
 def _attn_stack(blocks, x, cfg, caches, *, causal: bool, use_flash: bool,
-                train: bool = False, remat: bool = False):
+                train: bool = False, remat: bool = False, shard=no_shard):
     """caches: stacked per-layer KVCache for decode, or None (prefill
     collects fresh ones; train keeps none). Returns (x, the summed aux
     loss or None, stacked caches or None in train mode)."""
@@ -246,45 +252,46 @@ def _attn_stack(blocks, x, cfg, caches, *, causal: bool, use_flash: bool,
     for i, blk in enumerate(blocks):
         if train:
             x, aux_l = _run(remat, _attn_train, blk, x, cfg, causal,
-                            use_flash)
+                            use_flash, shard)
         else:
             x, c, aux_l, _ = _attn_block_apply(
                 blk, x, cfg, None if caches is None else _layer(caches, i),
-                causal=causal, use_flash=use_flash)
+                causal=causal, use_flash=use_flash, shard=shard)
             new.append(c)
         if aux_l is not None:
             aux = aux_l if aux is None else aux + aux_l
     return x, aux, None if train else _stacked(new)
 
 
-def _mamba_layer(blk: MambaBlock, x, cfg, state):
+def _mamba_layer(blk: MambaBlock, x, cfg, state, shard=no_shard):
     """One residual Mamba2 layer. The model's SSM layers call
     ``mamba2_block`` without ``use_kernel``, as the reference's
     ``_ssm_stack`` and ``_hybrid_stack`` do: its forward runs the plain
     SSD product."""
     out, st = mamba2_block(blk.mamba, rms_norm(blk.ln, x, cfg.norm_eps), cfg,
-                           state=state)
+                           state=state, shard=shard)
     return x + out, st
 
 
-def _mamba_train(blk: MambaBlock, x, cfg):
-    return _mamba_layer(blk, x, cfg, None)[0]
+def _mamba_train(blk: MambaBlock, x, cfg, shard):
+    return _mamba_layer(blk, x, cfg, None, shard)[0]
 
 
-def _ssm_stack(blocks, x, cfg, states, is_decode, train=False, remat=False):
+def _ssm_stack(blocks, x, cfg, states, is_decode, train=False, remat=False,
+               shard=no_shard):
     new = []
     for i, blk in enumerate(blocks):
         if train:
-            x = _run(remat, _mamba_train, blk, x, cfg)
+            x = _run(remat, _mamba_train, blk, x, cfg, shard)
             continue
         x, st = _mamba_layer(blk, x, cfg,
-                             _layer(states, i) if is_decode else None)
+                             _layer(states, i) if is_decode else None, shard)
         new.append(st)
     return x, None if train else _stacked(new)
 
 
 def _hybrid_stack(params: LM, x, cfg, caches, is_decode, use_flash,
-                  train=False, remat=False):
+                  train=False, remat=False, shard=no_shard):
     """Groups of ``attn_every`` Mamba2 blocks, each followed by the one
     parameter-shared attention block, then the tail. caches: (SSM states
     stacked over n_layers, KV caches stacked over the groups); prefill
@@ -297,9 +304,9 @@ def _hybrid_stack(params: LM, x, cfg, caches, is_decode, use_flash,
 
     def mamba(i, x):
         if train:
-            return _run(remat, _mamba_train, layers[i], x, cfg)
+            return _run(remat, _mamba_train, layers[i], x, cfg, shard)
         x, st = _mamba_layer(layers[i], x, cfg,
-                             _layer(states, i) if is_decode else None)
+                             _layer(states, i) if is_decode else None, shard)
         new_states.append(st)
         return x
 
@@ -308,7 +315,7 @@ def _hybrid_stack(params: LM, x, cfg, caches, is_decode, use_flash,
             x = mamba(i, x)
         x, c, _, _ = _attn_block_apply(
             params.shared_attn, x, cfg, _layer(kv, g) if is_decode else None,
-            causal=True, use_flash=use_flash)
+            causal=True, use_flash=use_flash, shard=shard)
         if not train:
             new_kv.append(c)
     for i in range(grouped, cfg.n_layers):
@@ -317,7 +324,8 @@ def _hybrid_stack(params: LM, x, cfg, caches, is_decode, use_flash,
 
 
 def _encdec_stack(params: LM, x, cfg, caches, frontend_embeds, is_decode,
-                  compute_dtype, use_flash, train=False, remat=False):
+                  compute_dtype, use_flash, train=False, remat=False,
+                  shard=no_shard):
     """Prefill and train encode the frontend embeddings bidirectionally
     (the plain product, ``use_flash=False`` as in the reference) into the
     memory and compute each decoder layer's cross K/V from it; decode
@@ -330,7 +338,7 @@ def _encdec_stack(params: LM, x, cfg, caches, frontend_embeds, is_decode,
         m, _, _ = _attn_stack(params.enc_blocks,
                               frontend_embeds.to(compute_dtype), cfg, None,
                               causal=False, use_flash=False, train=train,
-                              remat=remat)
+                              remat=remat, shard=shard)
         memory = rms_norm(params.ln_enc, m, cfg.norm_eps)
         kv = cross_kvs = None
     new_kv, new_ck, new_cv = [], [], []
@@ -340,7 +348,7 @@ def _encdec_stack(params: LM, x, cfg, caches, frontend_embeds, is_decode,
         x, c, _, (ck, cv) = _attn_block_apply(
             blk, x, cfg, None if kv is None else _layer(kv, i), causal=True,
             use_flash=use_flash, memory=memory if ckv is None else None,
-            mem_cross_kv=ckv)
+            mem_cross_kv=ckv, shard=shard)
         if not train:
             new_kv.append(c)
             new_ck.append(ck)
@@ -355,7 +363,7 @@ def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor, *,
             mode: str = "prefill", caches: Any = None,
             frontend_embeds: torch.Tensor | None = None,
             use_flash: bool = False, remat: bool = False,
-            compute_dtype=torch.bfloat16) -> ForwardOut:
+            compute_dtype=torch.bfloat16, shard=no_shard) -> ForwardOut:
     """tokens: (B, L) integer ids. frontend_embeds: (B, S_front, D)
     precomputed embeddings of the stubbed modality: the ``vlm`` prefill
     and train modes put them in front of the text (and drop their
@@ -364,7 +372,14 @@ def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor, *,
     (the serving call sites rely on it; the reference's default is
     ``"train"``). Train mode returns no caches; ``remat`` takes effect
     only there. Train mode with ``use_flash`` raises: the flash kernel
-    has no backward, and its output would carry no gradient."""
+    has no backward, and its output would carry no gradient.
+
+    ``shard(logical, x)`` constrains the activations at the reference's
+    logical names (``hidden``, ``logits``, ``attn_q``, ``attn_out``,
+    ``ffn_hidden``, ``moe_expert_in``, ``moe_expert_out``, ``ssm_x``);
+    a mesh run passes `sharding.rules.ShardingPlan.shard_fn`, with the
+    parameters and the inputs ``DTensor``s, and the forward then runs
+    in its ``scope`` (`layers.Shard`). The default changes nothing."""
     _check_family(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r} is not train, prefill or decode")
@@ -377,30 +392,33 @@ def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor, *,
         raise ValueError("decode needs the caches of a prefill")
     fam = cfg.family
     prefix = frontend_embeds is not None and fam == "vlm" and not is_decode
-    x = embed(params.embed, tokens, compute_dtype)
-    if prefix:
-        x = torch.cat([frontend_embeds.to(compute_dtype), x], dim=1)
-    aux = None
-    if fam in ("dense", "moe", "vlm"):
-        x, aux, new_caches = _attn_stack(params.blocks, x, cfg,
-                                         caches if is_decode else None,
-                                         causal=True, use_flash=use_flash,
-                                         train=train, remat=remat)
-    elif fam == "ssm":
-        x, new_caches = _ssm_stack(params.blocks, x, cfg, caches, is_decode,
-                                   train, remat)
-    elif fam == "hybrid":
-        x, new_caches = _hybrid_stack(params, x, cfg, caches, is_decode,
-                                      use_flash, train, remat)
-    else:
-        x, new_caches = _encdec_stack(params, x, cfg, caches,
-                                      frontend_embeds, is_decode,
-                                      compute_dtype, use_flash, train, remat)
-    x = rms_norm(params.ln_f, x, cfg.norm_eps)
-    if prefix:
-        x = x[:, frontend_embeds.shape[1]:]
-    table = params.embed if cfg.tie_embeddings else params.unembed
-    if aux is None:
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return ForwardOut(logits=unembed(table, x), caches=new_caches,
-                      aux_loss=aux)
+    with shard.scope(tokens):
+        x = embed(params.embed, tokens, compute_dtype, shard)
+        if prefix:
+            x = torch.cat([frontend_embeds.to(compute_dtype), x], dim=1)
+        x = shard("hidden", x)
+        aux = None
+        if fam in ("dense", "moe", "vlm"):
+            x, aux, new_caches = _attn_stack(
+                params.blocks, x, cfg, caches if is_decode else None,
+                causal=True, use_flash=use_flash, train=train, remat=remat,
+                shard=shard)
+        elif fam == "ssm":
+            x, new_caches = _ssm_stack(params.blocks, x, cfg, caches,
+                                       is_decode, train, remat, shard)
+        elif fam == "hybrid":
+            x, new_caches = _hybrid_stack(params, x, cfg, caches, is_decode,
+                                          use_flash, train, remat, shard)
+        else:
+            x, new_caches = _encdec_stack(params, x, cfg, caches,
+                                          frontend_embeds, is_decode,
+                                          compute_dtype, use_flash, train,
+                                          remat, shard)
+        x = rms_norm(params.ln_f, x, cfg.norm_eps)
+        if prefix:
+            x = x[:, frontend_embeds.shape[1]:]
+        table = params.embed if cfg.tie_embeddings else params.unembed
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        logits = shard("logits", unembed(table, x))
+    return ForwardOut(logits=logits, caches=new_caches, aux_loss=aux)

@@ -38,6 +38,33 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
 
 
+def _leaves(grads: Mapping[str, torch.Tensor]) -> dict[str, list[str]]:
+    """The gradients' names grouped by their leaf of the reference's
+    tree."""
+    leaves: dict[str, list[str]] = {}
+    for name in grads:
+        leaves.setdefault(reference_leaf(name), []).append(name)
+    return leaves
+
+
+def _leaf_scale(parts) -> torch.Tensor:
+    """One scale over every part of a leaf: the amax of each part, then
+    of those; on ``DTensor`` parts each amax reduces over every shard,
+    so the scale is the global one."""
+    return _scale(torch.amax(torch.stack(
+        [torch.amax(torch.abs(t)) for t in parts])))
+
+
+@torch.no_grad()
+def leaf_scales(grads: Mapping[str, torch.Tensor],
+                residuals: Mapping[str, torch.Tensor]) -> dict:
+    """The scale `compress_grads_with_feedback` takes for each leaf of
+    the reference's tree, by its name."""
+    return {leaf: _leaf_scale(grads[n].to(torch.float32) + residuals[n]
+                              for n in names)
+            for leaf, names in _leaves(grads).items()}
+
+
 @torch.no_grad()
 def compress_grads_with_feedback(grads: Mapping[str, torch.Tensor],
                                  residuals: Mapping[str, torch.Tensor]):
@@ -47,14 +74,10 @@ def compress_grads_with_feedback(grads: Mapping[str, torch.Tensor],
     slices of one leaf of the reference's tree share one scale, as the
     reference scales each stacked leaf of its layer stacks as one tensor
     (`param_names.reference_leaf`)."""
-    leaves: dict[str, list[str]] = {}
-    for name in grads:
-        leaves.setdefault(reference_leaf(name), []).append(name)
     out, new_res = {}, {}
-    for names in leaves.values():
+    for names in _leaves(grads).values():
         g32 = {n: grads[n].to(torch.float32) + residuals[n] for n in names}
-        scale = _scale(torch.amax(torch.stack(
-            [torch.amax(torch.abs(t)) for t in g32.values()])))
+        scale = _leaf_scale(g32.values())
         for n, t in g32.items():
             deq = dequantize_int8(_codes(t, scale), scale)
             out[n] = deq.to(grads[n].dtype)
@@ -63,5 +86,5 @@ def compress_grads_with_feedback(grads: Mapping[str, torch.Tensor],
 
 
 def init_residuals(params: Mapping[str, torch.Tensor]) -> dict:
-    return {name: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return {name: torch.zeros_like(p, dtype=torch.float32)
             for name, p in params.items()}

@@ -70,19 +70,20 @@ def schedule_lr(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init_adamw(params: Mapping[str, torch.Tensor]) -> AdamWState:
-    """Zero moments beside every parameter, on its device."""
+    """Zero moments beside every parameter, on its device (a ``DTensor``
+    parameter's on its placements)."""
     def zeros():
-        return {name: torch.zeros(
-            p.shape, device=p.device,
-            dtype=OPT_STATE_DTYPE if p.dtype == torch.float32 else p.dtype)
-            for name, p in params.items()}
+        return {name: torch.zeros_like(
+            p, dtype=OPT_STATE_DTYPE if p.dtype == torch.float32
+            else p.dtype) for name, p in params.items()}
     device = next(iter(params.values())).device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
                       m=zeros(), v=zeros())
 
 
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """The float32 2-norm over every leaf."""
+    """The float32 2-norm over every leaf; over every shard of a
+    ``DTensor`` leaf (a ``DTensor`` itself then, replicated)."""
     return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
                           for x in tree.values()))
 

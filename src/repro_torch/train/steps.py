@@ -26,9 +26,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer
 from repro_torch.models.attention import KVCache
+from repro_torch.models.layers import no_shard
 from repro_torch.models.ssm import SSMState, init_ssm_state
 from repro_torch.runtime.compression import compress_grads_with_feedback, \
     init_residuals
+from repro_torch.sharding.rules import is_dtensor
 from repro_torch.train.optimizer import AdamWState, OptimizerConfig, \
     adamw_update, init_adamw
 
@@ -53,23 +55,34 @@ class StepConfig:
 
 
 def lm_loss(params: transformer.LM, cfg: ModelConfig, tokens, labels, *,
-            step_cfg: StepConfig, frontend=None):
+            step_cfg: StepConfig, frontend=None, shard=no_shard):
     """Returns (loss + aux_loss_weight * aux, {"loss", "aux_loss"}): the
     mean cross-entropy over the positions whose label is >= 0, from
     float32 logits and a stable logsumexp whose max carries no gradient
     (the reference's ``stop_gradient``). The label logit is a gather
     where the reference contracts with a one-hot: the same value, and no
-    (B, L, V) one-hot."""
+    (B, L, V) one-hot. On vocab-sharded ``DTensor`` logits the max and
+    the sum reduce across the shards, and the label logit is a masked
+    sum: the same values."""
     out = transformer.forward(
         params, cfg, tokens, mode="train", use_flash=step_cfg.use_flash,
         remat=step_cfg.remat, compute_dtype=step_cfg.compute_dtype,
-        frontend_embeds=frontend)
+        frontend_embeds=frontend, shard=shard)
     logits = out.logits.to(torch.float32)
     m = torch.amax(logits, dim=-1, keepdim=True).detach()
     lse = m.squeeze(-1) + torch.log(torch.sum(torch.exp(logits - m), dim=-1))
     mask = (labels >= 0).to(torch.float32)
-    label_logit = torch.gather(logits, -1,
-                               labels.clamp_min(0)[..., None]).squeeze(-1)
+    if is_dtensor(logits):
+        # the label's logit as the sum of one entry and zeros, which each
+        # rank takes over its vocab slice and the sum reduces exactly; a
+        # gather on a vocab-sharded DTensor yields a masked partial that
+        # DTensor cannot reduce onto a shard
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        label_logit = torch.sum(torch.where(
+            vocab == labels.clamp_min(0)[..., None], logits, 0.0), dim=-1)
+    else:
+        label_logit = torch.gather(
+            logits, -1, labels.clamp_min(0)[..., None]).squeeze(-1)
     loss = -torch.sum((label_logit - lse) * mask) / \
         torch.clamp_min(torch.sum(mask), 1.0)
     total = loss + step_cfg.aux_loss_weight * out.aux_loss
@@ -89,8 +102,18 @@ def _grads_on(params: dict[str, torch.Tensor]):
             p.requires_grad_(False)
 
 
+def _placed(grad: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor`` gradient on its parameter's placements (a weight
+    used on batch-sharded activations comes back as a partial sum); a
+    plain one as it is."""
+    if is_dtensor(param) and tuple(grad.placements) != \
+            tuple(param.placements):
+        return grad.redistribute(param.device_mesh, param.placements)
+    return grad
+
+
 def loss_and_grads(model: transformer.LM, cfg: ModelConfig,
-                   step_cfg: StepConfig, batch: dict):
+                   step_cfg: StepConfig, batch: dict, shard=no_shard):
     """(grads by parameter name, the loss, metrics) of one batch. With
     ``microbatches`` = mb > 1 the batch is split along its first axis:
     the grads are the sum of the microbatches' float32 grads over mb and
@@ -98,7 +121,10 @@ def loss_and_grads(model: transformer.LM, cfg: ModelConfig,
     mb, and the reported ``aux_loss`` is zero, all as the reference
     reports them (``steps.py:100-109``). Every parameter must be reached
     by the loss: one that is not raises, as does ``use_flash`` (the train
-    mode of `transformer.forward`)."""
+    mode of `transformer.forward`). On a mesh (``DTensor`` parameters and
+    batch, ``shard`` the plan's) each gradient comes back on its
+    parameter's placements, and the backward, remat's recomputation
+    included, runs in ``shard.scope`` (`models.layers.Shard`)."""
     params = dict(model.named_parameters())
     names = list(params)
     mb = step_cfg.microbatches
@@ -109,17 +135,18 @@ def loss_and_grads(model: transformer.LM, cfg: ModelConfig,
     parts = list(zip(batch["tokens"].chunk(mb), batch["labels"].chunk(mb),
                      fr.chunk(mb) if fr is not None else [None] * mb))
     acc = loss_sum = None
-    with _grads_on(params):
+    with _grads_on(params), shard.scope(batch["tokens"]):
         for tokens, labels, frontend in parts:
             total, metrics = lm_loss(model, cfg, tokens, labels,
-                                     step_cfg=step_cfg, frontend=frontend)
+                                     step_cfg=step_cfg, frontend=frontend,
+                                     shard=shard)
             g = torch.autograd.grad(total, [params[n] for n in names])
+            g = [_placed(t, params[n]) for n, t in zip(names, g)]
             if mb == 1:
                 return dict(zip(names, g)), metrics["loss"].detach(), \
                     {k: v.detach() for k, v in metrics.items()}
             if acc is None:
-                acc = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device)
+                acc = {n: torch.zeros_like(p, dtype=torch.float32)
                        for n, p in params.items()}
                 loss_sum = 0.0
             for n, t in zip(names, g):
@@ -132,8 +159,13 @@ def loss_and_grads(model: transformer.LM, cfg: ModelConfig,
                                               device=loss.device)}
 
 
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    """A metric as a plain tensor, the same on every rank."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
-                    step_cfg: StepConfig):
+                    step_cfg: StepConfig, shard=None):
     """``train_step(state, batch) -> (new state, metrics)``; ``batch``
     holds ``tokens`` and ``labels`` (B, L) and, for the vlm and encdec
     families, ``frontend`` (B, S, D). The grads (`loss_and_grads`), then
@@ -144,7 +176,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
     that are matrices there (every per-layer vector of a stack
     included). The update is in place: the new state holds the same
     parameter and moment tensors. Metrics: ``loss``, ``aux_loss``,
-    ``lr``, ``grad_norm`` (0-d tensors on the parameters' device)."""
+    ``lr``, ``grad_norm`` (0-d tensors on the parameters' device).
+
+    ``shard`` is the plan's `ShardingPlan.shard_fn` on a mesh, as the
+    reference's ``make_train_step(..., plan.shard_fn())``: the state's
+    tensors are then ``DTensor``s (`sharding.state`) and the batch lies
+    on the plan's batch spec. The gradient norm and the compression's
+    scales reduce over every shard, and the metrics come back as plain
+    tensors on every rank."""
+    shard = shard or no_shard
     if step_cfg.use_flash:
         raise ValueError("use_flash: flash_attention has no backward, and "
                          "the reference cannot differentiate its own "
@@ -152,7 +192,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
 
     def train_step(state: TrainState, batch: dict):
         grads, _, metrics = loss_and_grads(state.params, cfg, step_cfg,
-                                           batch)
+                                           batch, shard)
         residuals = state.residuals
         if step_cfg.compress_pod_grads and residuals is not None:
             grads, residuals = compress_grads_with_feedback(grads,
@@ -161,20 +201,23 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
             opt_cfg, dict(state.params.named_parameters()), grads, state.opt)
         return TrainState(params=state.params, opt=new_opt,
                           residuals=residuals, rng=state.rng + 1), \
-            {**metrics, **opt_metrics}
+            {k: _plain(v) for k, v in {**metrics, **opt_metrics}.items()}
 
     return train_step
 
 
 def init_train_state(seed: int, cfg: ModelConfig, step_cfg: StepConfig,
-                     param_dtype=torch.float32, device=None) -> TrainState:
+                     param_dtype=torch.float32, device=None,
+                     place=None) -> TrainState:
     """A model drawn from ``seed`` on ``device``, zero AdamW moments and,
-    under ``compress_pod_grads``, zero residuals. The step advances
-    ``rng`` by one, as the reference folds 1 into its key; nothing in
-    the step draws from it."""
+    under ``compress_pod_grads``, zero residuals, each beside its
+    parameter. ``place(name, p)`` takes each parameter as soon as it is
+    drawn (`transformer.init_model`; `sharding.state` lays it on a mesh).
+    The step advances ``rng`` by one, as the reference folds 1 into its
+    key; nothing in the step draws from it."""
     gen = torch.Generator(device=device or "cpu")
     gen.manual_seed(seed)
-    model = transformer.init_model(cfg, gen, param_dtype, device)
+    model = transformer.init_model(cfg, gen, param_dtype, device, place)
     params = dict(model.named_parameters())
     return TrainState(
         params=model, opt=init_adamw(params),
@@ -183,27 +226,29 @@ def init_train_state(seed: int, cfg: ModelConfig, step_cfg: StepConfig,
         rng=seed)
 
 
-def make_prefill_step(cfg: ModelConfig, step_cfg: StepConfig):
+def make_prefill_step(cfg: ModelConfig, step_cfg: StepConfig, shard=None):
+    """``shard``: as `make_train_step`'s."""
     @torch.no_grad()
     def prefill(params, batch):
         out = transformer.forward(
             params, cfg, batch["tokens"], mode="prefill",
             use_flash=step_cfg.use_flash,
             compute_dtype=step_cfg.compute_dtype,
-            frontend_embeds=batch.get("frontend"))
+            frontend_embeds=batch.get("frontend"), shard=shard or no_shard)
         return out.logits[:, -1], out.caches
 
     return prefill
 
 
-def make_decode_step(cfg: ModelConfig, step_cfg: StepConfig):
+def make_decode_step(cfg: ModelConfig, step_cfg: StepConfig, shard=None):
     """The decode step attends through the plain product whatever
-    ``use_flash`` says, as the reference's does."""
+    ``use_flash`` says, as the reference's does. ``shard``: as
+    `make_train_step`'s."""
     @torch.no_grad()
     def decode(params, batch, caches):
         out = transformer.forward(
             params, cfg, batch["tokens"], mode="decode", caches=caches,
-            compute_dtype=step_cfg.compute_dtype)
+            compute_dtype=step_cfg.compute_dtype, shard=shard or no_shard)
         return out.logits[:, -1], out.caches
 
     return decode

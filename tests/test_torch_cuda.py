@@ -968,3 +968,71 @@ def test_matmul_int8_at_bridge_mip_picks(cuda, m, k, n):
         x, w, xs, ws, torch.float32).double()
     assert float((out - ref).norm() / ref.norm()) <= \
         NUMERICS_TOL["matmul_int8"]
+
+
+def test_train_step_on_a_one_rank_nccl_mesh(cuda):
+    """One reduced train step on a one-rank ``nccl`` mesh on the card
+    (`launch.mesh.make_host_mesh`, the state drawn onto the plan, the
+    batch on its batch spec, ``shard_fn`` in the forward), bit-equal to
+    the same step without the mesh: loss, grad norm, every parameter and
+    both moments. In a process of its own, whose process group ends with
+    it."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    import textwrap
+    from pathlib import Path
+    code = textwrap.dedent("""
+        import sys
+        import torch, torch.distributed as dist
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import ShapeSpec
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.sharding.rules import make_plan
+        from repro_torch.sharding.state import init_sharded_train_state, \\
+            place
+        from repro_torch.train import optimizer, steps
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("nccl", init_method="tcp://127.0.0.1:"
+                                + sys.argv[1], rank=0, world_size=1)
+        cfg = get_config("minicpm-2b").reduced()
+        step_cfg = steps.StepConfig(compute_dtype=torch.float32)
+        opt = optimizer.OptimizerConfig(lr=1e-3, warmup_steps=4,
+                                        total_steps=20, schedule="wsd")
+        mesh = make_host_mesh()
+        plan = make_plan(mesh, cfg, ShapeSpec("t", 64, 4, "train"))
+        g = torch.Generator(device="cuda").manual_seed(1)
+        toks = torch.randint(0, cfg.vocab_size, (4, 64), generator=g,
+                             device="cuda")
+        batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+        one = steps.init_train_state(0, cfg, step_cfg, device="cuda")
+        one, met = steps.make_train_step(cfg, opt, step_cfg)(one, batch)
+        sh = init_sharded_train_state(0, cfg, step_cfg, plan, mesh,
+                                      device="cuda")
+        dbatch = {k: place(v, mesh, plan.batch_spec())
+                  for k, v in batch.items()}
+        sh, dmet = steps.make_train_step(cfg, opt, step_cfg,
+                                         plan.shard_fn())(sh, dbatch)
+        bad = [k for k in ("loss", "grad_norm", "lr")
+               if not torch.equal(met[k], dmet[k])]
+        for (n, p), q in zip(one.params.named_parameters(),
+                             sh.params.parameters()):
+            if not torch.equal(p, q.full_tensor()):
+                bad.append(n)
+        for key in ("m", "v"):
+            for n, t in getattr(one.opt, key).items():
+                if not torch.equal(t, getattr(sh.opt, key)[n].full_tensor()):
+                    bad.append(key + "." + n)
+        print("DIFFER", bad)
+        dist.destroy_process_group()
+        """)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    src = Path(__file__).resolve().parents[1] / "src"
+    res = subprocess.run([sys.executable, "-c", code, str(port)],
+                         env=dict(os.environ, PYTHONPATH=str(src)),
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "DIFFER []" in res.stdout, res.stdout[-3000:]

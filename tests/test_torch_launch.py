@@ -282,15 +282,96 @@ def test_dryrun_cell_matches_reference_specs(tmp_path, reference_cells,
     assert rec["flops_per_device"] == rec["flops_global"] / math.prod(
         axes.values())
     assert rec["flops_basis"] == "global/devices"
-    assert rec["collective_bytes_per_device"] is None
+    # the plan inside the forward: the step's collectives, by kind
+    coll = rec["collective_bytes_per_device"]
+    assert coll and set(coll) <= {"all-gather", "all-reduce",
+                                  "reduce-scatter", "all-to-all"}
+    assert all(v >= 0 for v in coll.values()) and sum(coll.values()) > 0
+    link = rec["collective_link_bytes_per_device"]
+    assert set(link) == set(coll) and all(
+        0 <= link[k] <= 16 * coll[k] for k in coll)
+    assert "collective_reason" not in rec
     # the record is of the reduced config; model_flops (and with it the
     # useful-compute ratio) reads the arch's published one, so only the
     # terms taken from the record are held here
     t = roofline.roofline_terms(rec)
-    assert t["status"] == "ok" and t["t_collective_s"] is None
+    assert t["status"] == "ok" and t["absent_terms"] == {}
+    assert t["t_collective_s"] == sum(coll.values()) / lmesh.LINK_BW
     assert t["t_compute_s"] == rec["flops_per_device"] / lmesh.PEAK_BF16_FLOPS
     assert t["t_memory_s"] == rec["bytes_per_device"] / lmesh.HBM_BW
-    assert t["dominant"] in ("compute", "memory")
+    assert t["dominant"] in ("compute", "memory", "collective")
+
+
+def test_decode_step_keeps_the_kv_cache_in_place(tmp_path):
+    """glm4-9b ``decode_32k`` on the single-pod 16 x 16 mesh at published
+    widths (meta tensors): its 2 KV heads do not divide the model axis,
+    so the plan splits the cache's sequence over it. A decode step
+    attends on those shards (`sharding.rules.attention_on_shards`) and
+    writes its new row there, so its collectives move far less than the
+    cache a device holds: none of all-to-all, reduce-scatter or
+    all-reduce moves a 16th of it, and all of them together not half."""
+    _run("""
+        import sys
+        from repro_torch.launch import dryrun
+        dryrun.main(sys.argv[1:])
+        """, "--arch", "glm4-9b", "--shape", "decode_32k", "--out",
+         str(tmp_path))
+    rec = json.loads((tmp_path / "glm4-9b__decode_32k__single.json")
+                     .read_text())
+    cache = rec["bytes_per_device_by_kind"]["caches"]
+    coll = rec["collective_bytes_per_device"]
+    assert rec["status"] == "ok" and cache > 5e8
+    for kind in ("all-to-all", "reduce-scatter", "all-reduce"):
+        assert coll.get(kind, 0.0) < cache / 16, (kind, coll)
+    assert sum(coll.values()) < cache / 2, coll
+
+
+def test_collective_count_of_the_embedding_gather():
+    """`dryrun.CollectiveBytes` on a fake (data 2, model 2) mesh over
+    `sharding.rules.embedding_rows` of a reduced table: the one
+    all-gather is the table's ``data`` shards gathered, whose result on
+    each device is the table's bytes over the model shards and of which
+    a device receives (data - 1) / data over its links; the rows' partial
+    sums reduce over ``model`` (one all-reduce)."""
+    out = _run("""
+        import json
+        import torch, torch.distributed as dist
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        from repro_torch.configs import SHAPES, get_config
+        from repro_torch.launch.dryrun import CollectiveBytes
+        from repro_torch.sharding import rules
+        from repro_torch.sharding.state import place
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=4)
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        cfg = get_config("minicpm-2b").reduced()
+        plan = rules.make_plan(mesh, cfg, SHAPES["train_4k"])
+        table = torch.empty(cfg.padded_vocab(), cfg.d_model, device="meta")
+        ids = torch.empty(8, 64, dtype=torch.long, device="meta")
+        table = place(table, mesh, plan.param_spec_for("embed.table", table))
+        ids = place(ids, mesh, plan.batch_spec())
+        with CollectiveBytes() as c:
+            rows = rules.embedding_rows(table, ids)
+        print(json.dumps({"bytes": c.bytes, "link": c.link_bytes,
+                          "rows": [str(p) for p in rows.placements],
+                          "hidden": [str(p) for p in rules.placements(
+                              plan.act_spec("hidden"), mesh)],
+                          "table_bytes": cfg.padded_vocab() * cfg.d_model * 4,
+                          "d_model": cfg.d_model}))
+        dist.destroy_process_group()
+        """)
+    got = json.loads(out.strip().splitlines()[-1])
+    data = model = 2
+    assert got["rows"] == got["hidden"]
+    assert set(got["bytes"]) == {"all-gather", "all-reduce"}
+    assert got["bytes"]["all-gather"] == got["table_bytes"] / model
+    assert got["link"]["all-gather"] == \
+        got["table_bytes"] / model * (data - 1) / data
+    rows_bytes = 8 // data * 64 * got["d_model"] * 4
+    assert got["bytes"]["all-reduce"] == rows_bytes
+    assert got["link"]["all-reduce"] == rows_bytes * 2 * (model - 1) / model
 
 
 def test_dryrun_skips_long_context_for_attention_models(tmp_path):

@@ -504,8 +504,30 @@ def test_dataflow_counts(monkeypatch, tmp_path, capsys):
 
 
 def test_driver_refuses_what_it_does_not_run():
-    with pytest.raises(NotImplementedError, match="Queue A.4"):
+    """``--production-mesh`` trains on 256 ranks: without a process group
+    (no ``WORLD_SIZE``, none started) it names the ranks it needs, and so
+    it does in a group of one rank (``WORLD_SIZE=1`` over gloo, in a
+    process of its own)."""
+    assert "WORLD_SIZE" not in os.environ
+    with pytest.raises(RuntimeError, match="needs 256 ranks"):
         train_lm.run(["--production-mesh", "--reduced", "--device", "cpu"])
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    src = Path(__file__).resolve().parents[1] / "src"
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.train_lm", "--production-mesh",
+         "--reduced", "--device", "cpu", "--steps", "1"],
+        env=dict(os.environ, WORLD_SIZE="1", RANK="0", MASTER_ADDR=
+                 "127.0.0.1", MASTER_PORT=str(port), PYTHONPATH=str(src)),
+        capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert "ValueError: the single-pod mesh {'data': 16, 'model': 16} " \
+        "needs 256 ranks, the process group has 1" in res.stderr
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_lm.run(["--reduced", "--steps", "1"])
