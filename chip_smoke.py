@@ -164,10 +164,32 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      80 GB, the collective bytes per device by kind (the plan inside the
      forward on the fake mesh; null fails the run) and the roofline
      terms, the collective one among them;
-  9. the ``kernels`` line: matmul_int8 and flash_attention count-weighted
+  9. path N, after L: the bridge bench on the card. ``repro_torch.
+     gpu_bridge_bench.bench_rows`` gives the bridge MIP's matmul_int8 pick
+     for each arch's dominant GEMM at published widths (65,536 x d_model
+     x max(ff / 16, 128), up to 65536 x 7168 x 304 and 65536 x 6144 x
+     1024); one launch at each pick, bit-equal to the plain version at
+     unit scales, is N's counted main path (10 launches). Then each pick
+     within NUMERICS_TOL at real scales, timed beside every one of the
+     kernel's 36 tiles (each bit-equal first): ``[bridge bench]`` lines
+     with the fastest tile, the pick's gap to it, the Spearman of the
+     model's time against the measured over the tiles, the model over the
+     measured at the pick and the share of the int8 tensor-core bound
+     (findings, not holds); where n is not a multiple of 16, the pick
+     also timed with w's columns zero-padded to the next one (its first
+     n columns bit-equal);
+  10. ``[hillclimb]``, after N: ``python -m repro_torch.perf_hillclimb``
+     for HILLCLIMB_CELLS at published widths (glm4-9b ``decode_32k``
+     kv-int8, minicpm-2b ``train_4k`` no-remat, qwen2-moe-a2.7b
+     ``train_4k`` moe-scatter against a baseline the dry run lowers with
+     the einsum dispatch), host only, the three cells at once, each in
+     its own processes with a time limit: every record status ok with
+     its memory counts (bytes accessed, peak and temporaries per device)
+     non-null, the deltas printed;
+  11. the ``kernels`` line: matmul_int8 and flash_attention count-weighted
      over path A's plan (one decode step), ssd_scan over path B's (one
-     prompt pass); launches are summed over the main paths A-M;
-  10. the last line: ``{"ok": true, "device": {...}}``.
+     prompt pass); launches are summed over the main paths A-N;
+  12. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero before printing any result.
@@ -1830,6 +1852,242 @@ def phase_path_l(torch, info: dict, mm_rows: list[dict], timer) -> tuple:
                         "dryrun": dry["seconds"]}}, launches
 
 
+def phase_path_n(torch, info: dict, timer) -> tuple:
+    """Path N, the bridge bench on the card: `gpu_bridge_bench.bench_rows`
+    (the MIP's matmul_int8 pick for each arch's dominant GEMM at published
+    widths: 65,536 tokens x d_model x max(ff / 16, 128)), then one
+    launch at each pick, bit-equal to the plain version at unit scales
+    (int32 sums, exact in float32 at these K): the path's counted
+    launches. Outside the count: the pick within NUMERICS_TOL at real
+    scales, then timed at the pick and at every tile of the kernel's set
+    (each tile's output bit-equal first); per shape the fastest tile,
+    the pick's gap to it, the Spearman of the model's time
+    (`gpu_bridge.matmul_seconds`) against the measured over the tiles,
+    the model over the measured at the pick and the pick's share of the
+    int8 tensor-core bound; where n is not a multiple of 16, the pick
+    also timed with w's columns zero-padded to the next one (first n
+    columns bit-equal), its share of the unpadded GEMM's bound beside.
+    No hold on the gap, the Spearman or the padded time: they are
+    findings."""
+    from repro_torch import gpu_bridge_bench
+    from repro_torch.core.executor import NUMERICS_TOL, spearman
+    from repro_torch.core.gpu_bridge import matmul_seconds
+    from repro_torch.kernels.matmul_int8 import kernel as mm_kernel
+    from repro_torch.kernels.matmul_int8.ref import matmul_int8_ref
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    tiles = [(bm, bk, bn) for bm in mm_kernel.BM_TILES
+             for bk in mm_kernel.BK_TILES for bn in mm_kernel.BN_TILES]
+
+    def main_path():
+        t = time.monotonic()
+        rows = gpu_bridge_bench.bench_rows()
+        solve_s = time.monotonic() - t
+        picks = []
+        for r in rows:
+            require(r["status"] != "fallback" and r["fits"],
+                    f"N: the bridge MIP's pick for {r['arch']}: {r}")
+            (m, k, n), (bm, bk, bn) = r["gemm"], r["pick"]
+            x = torch.randint(-127, 128, (m, k), dtype=torch.int8,
+                              device="cuda", generator=g)
+            w = torch.randint(-127, 128, (k, n), dtype=torch.int8,
+                              device="cuda", generator=g)
+            one_m = torch.ones(m, device="cuda")
+            one_n = torch.ones(n, device="cuda")
+            out = mm_kernel.matmul_int8(x, w, one_m, one_n, bm=bm, bk=bk,
+                                        bn=bn, out_dtype=torch.float32)
+            ref = matmul_int8_ref(x, w, one_m, one_n, torch.float32)
+            require(torch.equal(out, ref),
+                    f"N: matmul_int8 at the pick {(bm, bk, bn)} differs from "
+                    f"the plain version at {(m, k, n)} ({r['arch']})")
+            picks.append((r, x, w))
+            del out, ref
+        return picks, solve_s
+
+    (picks, solve_s), launches = drive(torch, "N", main_path)
+    require(launches["matmul_int8"] == len(picks) == 10 and
+            launches["flash_attention"] == 0 and launches["ssd_scan"] == 0,
+            f"N: launches {launches}")
+    rows = []
+    for r, x, w in picks:
+        (m, k, n), pick = r["gemm"], tuple(r["pick"])
+        one_m = torch.ones(m, device="cuda")
+        one_n = torch.ones(n, device="cuda")
+        xs = torch.rand(m, device="cuda", generator=g) / 127
+        ws = torch.rand(n, device="cuda", generator=g) / 127
+        call = lambda t, a, b: mm_kernel.matmul_int8(
+            x, w, a, b, bm=t[0], bk=t[1], bn=t[2], out_dtype=torch.float32)
+        out, ref = call(pick, xs, ws), matmul_int8_ref(x, w, xs, ws,
+                                                        torch.float32)
+        rel = float((out.double() - ref.double()).norm() /
+                    ref.double().norm())
+        max_abs = float((out - ref).abs().max())
+        require(rel <= NUMERICS_TOL["matmul_int8"],
+                f"N: matmul_int8 at {(m, k, n)} pick rel err {rel}")
+        del out, ref
+        exact = matmul_int8_ref(x, w, one_m, one_n, torch.float32)
+        ms = {}
+        for t in tiles:
+            require(torch.equal(call(t, one_m, one_n), exact),
+                    f"N: matmul_int8 at tile {t} differs from the plain "
+                    f"version at {(m, k, n)}")
+            ms[t] = timer(lambda: call(t, xs, ws))
+        pick_ms = timer(lambda: call(pick, xs, ws))
+        # n not a multiple of 16: the same GEMM with w's columns padded
+        # with zeros to the next one, at the pick, its first n columns
+        # bit-equal (the alignment hypothesis of PERF.md §7)
+        n_pad, pad_ms = -(-n // 16) * 16, None
+        if n_pad != n:
+            w_pad = torch.nn.functional.pad(w, (0, n_pad - n))
+            ws_pad = torch.nn.functional.pad(ws, (0, n_pad - n))
+            one_pad = torch.ones(n_pad, device="cuda")
+            pad = lambda a, b: mm_kernel.matmul_int8(
+                x, w_pad, a, b, bm=pick[0], bk=pick[1], bn=pick[2],
+                out_dtype=torch.float32)
+            require(torch.equal(pad(one_m, one_pad)[:, :n], exact),
+                    f"N: matmul_int8 with n padded to {n_pad} differs from "
+                    f"the plain version at {(m, k, n)}")
+            pad_ms = timer(lambda: pad(xs, ws_pad))
+            del w_pad
+        del exact
+        fastest = min(ms, key=ms.get)
+        model = [matmul_seconds(m, k, n, t[0], t[2]) * 1e3 for t in tiles]
+        tc_ms = 2.0 * m * n * k / PEAK_OPS_S["int8"] * 1e3
+        b_ms, b_by = bound_ms(m * k + k * n + 4 * (m + n) + 4 * m * n,
+                              2.0 * m * n * k, "int8")
+        row = {"arch": r["arch"], "gemm": [m, k, n], "pick": list(pick),
+               "status": r["status"], "est_ms": r["est_ms"],
+               "pick_ms": pick_ms, "fastest": list(fastest),
+               "fastest_ms": ms[fastest],
+               "gap_to_fastest": pick_ms / ms[fastest] - 1.0,
+               "spearman_model_vs_time": spearman(model, [ms[t]
+                                                          for t in tiles]),
+               "model_over_measured": r["est_ms"] / pick_ms,
+               "int8_tc_bound_ms": tc_ms, "tc_share": tc_ms / pick_ms,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "largest_ms": ms[(128, 128, 128)], "n_padded": n_pad,
+               "padded_ms": pad_ms, "padded_tc_share":
+                   None if pad_ms is None else tc_ms / pad_ms,
+               "rel_err": rel,
+               "max_abs_err": max_abs}
+        rows.append(row)
+        print(f"[bridge bench] {json.dumps(row)}", flush=True)
+        print(f"[bridge bench] {r['arch']} ms by tile (bm x bk x bn): "
+              + ", ".join(f"{a}x{b}x{c} {v:.4f}"
+                          for (a, b, c), v in ms.items()), flush=True)
+    picks.clear()
+    torch.cuda.empty_cache()
+    at_fastest = sum(tuple(r["pick"]) == tuple(r["fastest"]) for r in rows)
+    print(f"[bridge bench] {len(rows)} shapes, the pick the fastest tile at "
+          f"{at_fastest}; gap to the fastest "
+          f"{min(r['gap_to_fastest'] for r in rows):.4f}.."
+          f"{max(r['gap_to_fastest'] for r in rows):.4f}; model over "
+          f"measured at the pick "
+          f"{min(r['model_over_measured'] for r in rows):.4f}.."
+          f"{max(r['model_over_measured'] for r in rows):.4f}; bench "
+          f"solves {solve_s:.2f} s; card {info['nvidia_smi']}", flush=True)
+    return {"rows": rows, "solve_s": solve_s}, launches
+
+
+#: ``[hillclimb]``'s cells: (cell, variant, the MoE dispatch its baseline is
+#: lowered with, or None for the module defaults in the variant's
+#: process).
+HILLCLIMB_CELLS = (("glm4-9b:decode_32k:single", "kv-int8", None),
+                   ("minicpm-2b:train_4k:single", "no-remat", None),
+                   ("qwen2-moe-a2.7b:train_4k:single", "moe-scatter",
+                    "einsum"))
+HILLCLIMB_TIMEOUT_S = 600
+#: Lowers a dry-run cell under a MoE dispatch: argv the dispatch, then the
+#: dry run's own.
+_BASELINE = ("import sys\n"
+             "from repro_torch.models import moe\n"
+             "moe.MOE_DISPATCH = sys.argv[1]\n"
+             "from repro_torch.launch import dryrun\n"
+             "sys.exit(dryrun.main(sys.argv[2:]))\n")
+
+
+def _hillclimb_cell(cell: str, variant: str, dispatch, work: Path) -> dict:
+    """One ``[hillclimb]`` cell, its baseline first when it has one, each
+    command a process of its own; requires the record's baseline to be
+    the dry run's record written by the baseline process (or the module
+    defaults when there is none) and returns the variant's record, the
+    module's delta lines and the seconds."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    arch, shape, mesh = cell.split(":")
+    out, base = work / "out", work / "base"
+    cmds = []
+    if dispatch:
+        cmds.append([sys.executable, "-c", _BASELINE, dispatch, "--arch",
+                     arch, "--shape", shape, "--out", str(base)])
+    cmds.append([sys.executable, "-m", "repro_torch.perf_hillclimb",
+                 "--cell", cell, "--variant", variant, "--out", str(out)] +
+                (["--baseline", str(base)] if dispatch else []))
+    t = time.monotonic()
+    stdout = ""
+    for cmd in cmds:
+        res = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                             timeout=HILLCLIMB_TIMEOUT_S)
+        require(res.returncode == 0, f"hillclimb {cell} {variant}: exit "
+                f"{res.returncode}: {res.stdout[-1500:]} "
+                f"{res.stderr[-1500:]}")
+        stdout = res.stdout
+    rec = json.loads((out / f"{arch}__{shape}__{mesh}__{variant}.json")
+                     .read_text())
+    want = (str(base / f"{arch}__{shape}__{mesh}.json") if dispatch
+            else "lowered at the module defaults")
+    require(rec["baseline"] == want, f"hillclimb {cell} {variant}: "
+            f"baseline {rec['baseline']!r}, expected {want!r}")
+    return {"record": rec, "seconds": time.monotonic() - t,
+            "lines": [l for l in stdout.splitlines() if l.startswith("   ")]}
+
+
+def phase_hillclimb(info: dict) -> dict:
+    """``[hillclimb]``: `repro_torch.perf_hillclimb` over HILLCLIMB_CELLS at
+    published widths (meta tensors on the fake process group, host only),
+    the cells at once, each in its own processes with a time limit. Each
+    must exit 0 with the variant's and the baseline's records ok and
+    their memory counts (bytes accessed, peak, temporaries per device and
+    over the mesh) non-null. The deltas are findings, not holds."""
+    from concurrent.futures import ThreadPoolExecutor
+    with tempfile.TemporaryDirectory(prefix="miredo-hillclimb-") as tmp:
+        with ThreadPoolExecutor(len(HILLCLIMB_CELLS)) as pool:
+            futures = [pool.submit(_hillclimb_cell, cell, variant, dispatch,
+                                   Path(tmp) / str(i))
+                       for i, (cell, variant, dispatch)
+                       in enumerate(HILLCLIMB_CELLS)]
+            done = [f.result() for f in futures]
+    out = {}
+    keys = ("flops_per_device", "bytes_per_device",
+            "bytes_accessed_per_device")
+    mem_keys = ("peak_bytes", "temp_bytes_per_device", "temp_bytes")
+    for (cell, variant, dispatch), d in zip(HILLCLIMB_CELLS, done):
+        rec = d["record"]
+        for side in ("after_raw", "before_raw"):
+            raw = rec[side]
+            require(raw["status"] == "ok", f"hillclimb {cell} {variant}: "
+                    f"{side} status {raw['status']}: {raw.get('error')}")
+            require(raw["bytes_accessed_per_device"] is not None and
+                    all(raw["memory"][k] is not None for k in mem_keys),
+                    f"hillclimb {cell} {variant}: {side} memory counts "
+                    f"null: {raw['memory']}")
+        summary = {"cell": cell, "variant": variant,
+                   "baseline": rec["baseline"],
+                   "baseline_dispatch": dispatch, "seconds": d["seconds"]}
+        for side, tag in (("before_raw", "before"), ("after_raw", "after")):
+            raw = rec[side]
+            summary[tag] = {**{k: raw[k] for k in keys},
+                            **{k: raw["memory"][k] for k in mem_keys},
+                            "hbm_gb_per_device":
+                                rec[tag]["hbm_gb_per_device"]}
+        out[f"{cell} {variant}"] = summary
+        print(f"[hillclimb] {json.dumps(summary)}", flush=True)
+        for line in d["lines"]:
+            print(f"[hillclimb] {cell} {variant} {line.strip()}", flush=True)
+    print(f"[hillclimb] {len(out)} records, status ok, memory counted; "
+          f"card {info['nvidia_smi']}", flush=True)
+    return out
+
+
 def phase_path_e(torch, info: dict) -> tuple:
     """mamba2-1.3b served at its published widths. Its forward runs the
     plain SSD product, as the reference's does; beside it the path runs
@@ -2406,6 +2664,8 @@ def main() -> int:
                                       lives["J"], lives["K"])
     lives["L"], launches["L"] = timed("L", phase_path_l, torch, info, mm,
                                       timer)
+    lives["N"], launches["N"] = timed("N", phase_path_n, torch, info, timer)
+    hillclimb = timed("hillclimb", phase_hillclimb, info)
     seconds.update({f"K {k}": round(v, 1)
                     for k, v in lives["K"]["seconds"].items()})
     kernels = [kernel_entry("matmul_int8", mm, "A", launches),
@@ -2424,6 +2684,7 @@ def main() -> int:
         print(f"[main {label}] report: {json.dumps(live)}; card "
               f"{info['nvidia_smi']}")
     print(f"[traffic] report: {json.dumps(traffic)}")
+    print(f"[hillclimb] report: {json.dumps(hillclimb)}")
     print(f"[smoke] seconds by phase: {json.dumps(seconds)}")
     print(f"[smoke] all phases passed in {time.monotonic() - t0:.1f} s",
           flush=True)

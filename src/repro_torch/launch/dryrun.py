@@ -40,8 +40,23 @@ What the record holds that the reference's does not, and why:
     ``collective_reason`` names the op, as ``flops_error`` does;
   * ``bytes_per_device`` is the step's inputs, parameters, state and
     caches, each read or written once (``bytes_basis``): a lower bound on
-    the memory term; temporaries are not measured (``memory.temp_bytes``
-    null);
+    the memory term;
+  * the step's memory per device is counted in the same pass as the
+    collectives, on each rank's local shards (`StepMemory`), at 1 and 2
+    layer units and extrapolated with the same clamp:
+    ``bytes_accessed_per_device`` sums every op's operands and results,
+    once per op, with no fusion (``bytes_accessed_basis``; an upper bound
+    where XLA's count is of a fused program); ``memory.peak_bytes`` is
+    the largest sum of live storages during the step, arguments,
+    autograd's saved tensors and the collectives' results included, and
+    ``memory.temp_bytes_per_device`` that peak less the arguments (the
+    step's outputs among the temporaries). ``memory.temp_bytes`` is the
+    reference's convention, summed over the mesh. Where the pass cannot
+    run they are null, ``memory_reason`` naming the op;
+
+Overrides take the reference's meaning: ``cfg_transform`` maps the config
+before the 1- and 2-unit configs are cut, and ``step_overrides`` update the
+``StepConfig`` of every step built.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch glm4-9b \\
         --shape decode_32k --out DIR
@@ -62,6 +77,7 @@ import os
 import sys
 import time
 import traceback
+import weakref
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -71,10 +87,15 @@ from repro_torch.configs import ARCH_IDS, SHAPES, applicable_shapes, \
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.param_names import reference_leaf
 from repro_torch.sharding import rules
+from repro_torch.sharding.rules import sanitize
 
 META = torch.device("meta")
 BYTES_BASIS = ("inputs, parameters, optimizer state and caches per device, "
-               "each read or written once; temporaries not measured")
+               "each read or written once; temporaries in "
+               "memory.temp_bytes_per_device")
+BYTES_ACCESSED_BASIS = ("every op's local operands and results per device, "
+                        "once per op, no fusion (views excluded): an upper "
+                        "bound on a fused program's bytes accessed")
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeSpec,
@@ -90,34 +111,6 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec,
         specs["frontend"] = torch.empty((b, cfg.frontend_seq, cfg.d_model),
                                         dtype=dtype, device=META)
     return specs
-
-
-def sanitize(spec: tuple, shape, mesh) -> tuple:
-    """Drop mesh axes from any dim they do not evenly divide (decode steps
-    have degenerate length-1 axes, batch=1 long-context cells, etc.), as
-    the reference's ``_sanitize`` does: the whole entry when it divides,
-    else its longest dividing prefix."""
-    axes = rules.mesh_axes(mesh)
-    dims = list(spec) + [None] * (len(shape) - len(spec))
-    out = []
-    for d, size in zip(dims, shape):
-        if d is None:
-            out.append(None)
-            continue
-        names = rules.spec_axes(d)
-        keep, n = [], 1
-        if size % math.prod(axes[a] for a in names) == 0:
-            keep = list(names)
-        else:
-            for a in names:
-                if size % (n * axes[a]) == 0:
-                    keep.append(a)
-                    n *= axes[a]
-                else:
-                    break
-        out.append(tuple(keep) if len(keep) > 1 else
-                   (keep[0] if keep else None))
-    return tuple(out)
 
 
 def _entry(t: torch.Tensor, spec: tuple, mesh, layers: int = 1) -> dict:
@@ -172,8 +165,9 @@ def _leaves(tree, prefix: str = ""):
 
 def _cache_spec(t: torch.Tensor, plan, mesh) -> tuple:
     nd = t.ndim
-    kind = {5: "ssm_h" if t.dtype == torch.float32 else "kv",
-            4: "ssm_conv", 2: "kv_len"}.get(nd)
+    ssm = t.dtype == torch.float32 and t.shape[-1] != 1
+    kind = {5: "ssm_h" if ssm else "kv", 4: "ssm_conv",
+            2: "kv_len"}.get(nd)
     if kind is not None:
         return sanitize(plan.cache_spec(kind)[:nd], t.shape, mesh)
     return plan.batch_spec() if nd == 3 else ()
@@ -184,7 +178,12 @@ def cache_entries(caches, plan, mesh) -> dict:
     dtype, a 5-d float32 tensor is an SSM state, another 5-d one a KV
     cache, 4-d an SSM conv state, 2-d the KV lengths, 3-d (the encoder's
     memory) the batch spec as it is, anything else replicated; a cache
-    spec is cut to the tensor's rank and sanitized."""
+    spec is cut to the tensor's rank and sanitized. One departure: the
+    scales of an int8 KV cache (``attention.KV_QUANT``; float32,
+    (layers, B, S, KV, 1)) are laid as the cache they scale, where the
+    reference's rule takes them for an SSM state and keeps a whole
+    sequence on every device, which can cost more than the int8 cache
+    saves."""
     return {name: _entry(t, _cache_spec(t, plan, mesh), mesh)
             for name, t in _leaves(caches)}
 
@@ -192,14 +191,20 @@ def cache_entries(caches, plan, mesh) -> dict:
 STEP_CFG = dict(remat=True, microbatches=1)
 
 
-def _step_flops(cfg: ModelConfig, shape: ShapeSpec) -> float:
+def _step_config(step_overrides: dict | None):
+    from repro_torch.train import steps
+    return steps.StepConfig(**{**STEP_CFG, **(step_overrides or {})})
+
+
+def _step_flops(cfg: ModelConfig, shape: ShapeSpec,
+                step_overrides: dict | None = None) -> float:
     """Global flops of one step of ``cfg`` on meta tensors."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.models import transformer
     from repro_torch.train import optimizer, steps
 
-    step_cfg = steps.StepConfig(**STEP_CFG)
+    step_cfg = _step_config(step_overrides)
     model = transformer.init_model(cfg, None, torch.float32, META)
     batch = input_specs(cfg, shape)
     with FlopCounterMode(display=False) as counter:
@@ -310,46 +315,130 @@ class CollectiveBytes(TorchDispatchMode):
             placement_types.shard_dim_alltoall = orig
 
 
-def _step_collectives(cfg: ModelConfig, shape: ShapeSpec,
-                      mesh) -> tuple[dict, dict]:
+def _is_view(func) -> bool:
+    """An op whose every result aliases an input without writing it (a
+    view): it moves no bytes."""
+    rets = func._schema.returns
+    return bool(rets) and all(r.alias_info is not None and
+                              not r.alias_info.is_write for r in rets)
+
+
+class StepMemory(TorchDispatchMode):
+    """The memory of the plain (local) tensors' ops dispatched under it:
+    ``accessed``, every op's tensor operands and results, each once per
+    op, views excluded; ``live``, the bytes of the storages alive now,
+    counted once however many views share them and freed when the last
+    goes (weak references on the storages); ``peak``, the largest
+    ``live`` seen. Storages made before the mode count from `hold`. A
+    ``DTensor`` op is let through first, as in `CollectiveBytes`, so that
+    the mode sees its local ops; DTensor's shape propagation on fake
+    tensors is not counted."""
+
+    def __init__(self):
+        super().__init__()
+        self.accessed = 0.0
+        self.live = 0
+        self.peak = 0
+        self._refs: dict[int, weakref.ref] = {}
+
+    def _freed(self, key: int, n: int) -> None:
+        self.live -= n
+        self._refs.pop(key, None)
+
+    def _track(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = id(st)
+        if key in self._refs:
+            return
+        n = st.nbytes()
+        self._refs[key] = weakref.ref(
+            st, lambda _, key=key, n=n: self._freed(key, n))
+        self.live += n
+        self.peak = max(self.peak, self.live)
+
+    def hold(self, tree) -> int:
+        """Counts the storages of ``tree``'s tensors (a module's parameters
+        and buffers; a ``DTensor``'s local shard) as live; returns the
+        bytes live after."""
+        from torch.distributed.tensor import DTensor
+        for t in torch.utils._pytree.tree_leaves(tree):
+            if isinstance(t, torch.nn.Module):
+                self.hold([*t.parameters(), *t.buffers()])
+                continue
+            if isinstance(t, DTensor):
+                t = t._local_tensor
+            if isinstance(t, torch.Tensor):
+                self._track(t)
+        return self.live
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        outs = [t for t in torch.utils._pytree.tree_leaves(out)
+                if isinstance(t, torch.Tensor)]
+        if any(isinstance(t, FakeTensor) for t in outs) or \
+                any(issubclass(t, FakeTensor) for t in types):
+            return out
+        if not _is_view(func):
+            seen = set()
+            for t in torch.utils._pytree.tree_leaves((args, kwargs, outs)):
+                if isinstance(t, torch.Tensor) and id(t) not in seen:
+                    seen.add(id(t))
+                    self.accessed += t.numel() * t.element_size()
+        for t in outs:
+            self._track(t)
+        return out
+
+
+def _step_collectives(cfg: ModelConfig, shape: ShapeSpec, mesh,
+                      step_overrides: dict | None = None
+                      ) -> tuple[dict, dict, dict]:
     """(result bytes, link bytes) per device, by kind, of the collectives
     one step of ``cfg`` issues on ``mesh`` with the plan inside the
-    forward (`CollectiveBytes`): the parameters,
-    AdamW moments, inputs (rank >= 2 on the sanitized batch spec) and the
-    decode step's caches (`cache_entries`' specs) as ``DTensor``s on meta
-    tensors."""
+    forward (`CollectiveBytes`), and the step's memory per device
+    (`StepMemory`: ``accessed``, ``peak``, and ``arguments``, the bytes of
+    its arguments): the parameters, AdamW moments, inputs (rank >= 2 on
+    the sanitized batch spec) and the decode step's caches
+    (`cache_entries`' specs) as ``DTensor``s on meta tensors."""
     from repro_torch.models import transformer
     from repro_torch.sharding.state import map_state, place
     from repro_torch.train import optimizer, steps
 
     plan = rules.make_plan(mesh, cfg, shape)
-    step_cfg = steps.StepConfig(**STEP_CFG)
+    step_cfg = _step_config(step_overrides)
     model = map_state(
         transformer.init_model(cfg, None, torch.float32, META),
         lambda n, p: place(p, mesh, plan.param_spec_for(n, p)))
     batch = {k: place(v, mesh, sanitize(plan.batch_spec(), v.shape, mesh)
                       if v.ndim >= 2 else ())
              for k, v in input_specs(cfg, shape).items()}
-    counter = CollectiveBytes()
-    with counter, counter.host_all_to_all():
-        if shape.kind == "train":
-            params = dict(model.named_parameters())
-            state = steps.TrainState(params=model,
-                                     opt=optimizer.init_adamw(params),
-                                     residuals=None, rng=0)
-            steps.make_train_step(cfg, optimizer.OptimizerConfig(),
-                                  step_cfg, plan.shard_fn())(state, batch)
-        elif shape.kind == "prefill":
-            steps.make_prefill_step(cfg, step_cfg, plan.shard_fn())(
-                model, batch)
-        else:
-            caches = map_state(
-                steps.init_caches(cfg, shape.global_batch, shape.seq_len,
-                                  device=META),
-                lambda n, t: place(t, mesh, _cache_spec(t, plan, mesh)))
-            steps.make_decode_step(cfg, step_cfg, plan.shard_fn())(
-                model, batch, caches)
-    return counter.bytes, counter.link_bytes
+    if shape.kind == "train":
+        params = dict(model.named_parameters())
+        args = (steps.TrainState(params=model,
+                                 opt=optimizer.init_adamw(params),
+                                 residuals=None, rng=0), batch)
+        step = steps.make_train_step(cfg, optimizer.OptimizerConfig(),
+                                     step_cfg, plan.shard_fn())
+    elif shape.kind == "prefill":
+        args = (model, batch)
+        step = steps.make_prefill_step(cfg, step_cfg, plan.shard_fn())
+    else:
+        caches = map_state(
+            steps.init_caches(cfg, shape.global_batch, shape.seq_len,
+                              device=META),
+            lambda n, t: place(t, mesh, _cache_spec(t, plan, mesh)))
+        args = (model, batch, caches)
+        step = steps.make_decode_step(cfg, step_cfg, plan.shard_fn())
+    counter, memory = CollectiveBytes(), StepMemory()
+    held = memory.hold(args)
+    with counter, counter.host_all_to_all(), memory:
+        step(*args)
+    return counter.bytes, counter.link_bytes, {
+        "accessed": memory.accessed, "peak": memory.peak,
+        "arguments": held}
 
 
 def _op_error(e: BaseException) -> str:
@@ -360,10 +449,17 @@ def _op_error(e: BaseException) -> str:
 
 
 def lower_cell(arch_id: str, shape_name: str, *, multi_pod: bool, mesh,
-               cfg: ModelConfig | None = None) -> dict:
-    """The record of one cell on ``mesh`` (the production mesh)."""
+               cfg: ModelConfig | None = None,
+               step_overrides: dict | None = None,
+               cfg_transform=None) -> dict:
+    """The record of one cell on ``mesh`` (the production mesh): of
+    ``cfg`` (the arch's published config by default) mapped by
+    ``cfg_transform``, with ``step_overrides`` on every step's
+    ``StepConfig``."""
     t0 = time.monotonic()
     cfg = cfg or get_config(arch_id)
+    if cfg_transform is not None:
+        cfg = cfg_transform(cfg)
     shape = SHAPES[shape_name]
     if applicable_shapes(cfg)[shape_name] is None:
         return {"arch": arch_id, "shape": shape_name,
@@ -394,21 +490,27 @@ def lower_cell(arch_id: str, shape_name: str, *, multi_pod: bool, mesh,
     flops = f1 = f2 = flops_error = None
     t_flops = time.monotonic()
     try:
-        f1 = _step_flops(c1, shape)
-        f2 = _step_flops(c2, shape)
+        f1 = _step_flops(c1, shape, step_overrides)
+        f2 = _step_flops(c2, shape, step_overrides)
         flops = extrap(f1, f2)
     except NotImplementedError as e:        # an op with no meta kernel
         flops_error = _op_error(e)
     t_flops = time.monotonic() - t_flops
 
-    coll = link = coll1 = coll2 = coll_error = None
+    coll = link = coll1 = coll2 = coll_error = mem1 = mem2 = None
+    accessed = peak = temp = None
     t_coll = time.monotonic()
     try:
-        (coll1, link1), (coll2, link2) = (_step_collectives(c, shape, mesh)
-                                          for c in (c1, c2))
+        (coll1, link1, mem1), (coll2, link2, mem2) = (
+            _step_collectives(c, shape, mesh, step_overrides)
+            for c in (c1, c2))
         coll, link = ({k: extrap(a.get(k, 0.0), b.get(k, 0.0))
                        for k in sorted(set(a) | set(b))}
                       for a, b in ((coll1, coll2), (link1, link2)))
+        accessed = extrap(mem1["accessed"], mem2["accessed"])
+        peak = extrap(mem1["peak"], mem2["peak"])
+        temp = extrap(mem1["peak"] - mem1["arguments"],
+                      mem2["peak"] - mem2["arguments"])
     except NotImplementedError as e:
         # an op without a meta kernel or a DTensor sharding strategy
         coll_error = _op_error(e)
@@ -421,8 +523,8 @@ def lower_cell(arch_id: str, shape_name: str, *, multi_pod: bool, mesh,
         caches = steps.init_caches(cfg, shape.global_batch, shape.seq_len,
                                    device=META)
     elif shape.kind == "prefill" and flops_error is None:
-        _, caches = steps.make_prefill_step(cfg, steps.StepConfig(
-            **STEP_CFG))(model, input_specs(cfg, shape))
+        _, caches = steps.make_prefill_step(cfg, _step_config(
+            step_overrides))(model, input_specs(cfg, shape))
     params = param_entries(model.named_parameters(), plan, mesh)
     inputs = {k: _entry(v, sanitize(plan.batch_spec(), v.shape, mesh)
                         if v.ndim >= 2 else (), mesh)
@@ -454,6 +556,8 @@ def lower_cell(arch_id: str, shape_name: str, *, multi_pod: bool, mesh,
         "bytes_per_device": sum(by_kind.values()),
         "bytes_basis": BYTES_BASIS,
         "bytes_per_device_by_kind": by_kind,
+        "bytes_accessed_per_device": accessed,
+        "bytes_accessed_basis": BYTES_ACCESSED_BASIS,
         "collective_bytes_per_device": coll,
         "collective_link_bytes_per_device": link,
         **({"collective_reason": coll_error} if coll is None else {}),
@@ -461,7 +565,9 @@ def lower_cell(arch_id: str, shape_name: str, *, multi_pod: bool, mesh,
         "memory": {"argument_bytes": argument,
                    "output_bytes": 0 if shape.is_decode
                    else by_kind["caches"],
-                   "temp_bytes": None, "peak_bytes": None},
+                   "temp_bytes": None if temp is None else temp * n_dev,
+                   "temp_bytes_per_device": temp, "peak_bytes": peak},
+        **({"memory_reason": coll_error} if peak is None else {}),
         "seconds": round(time.monotonic() - t0, 1),
         "seconds_counting_flops": round(t_flops, 1),
         "seconds_counting_collectives": round(t_coll, 1),
@@ -469,7 +575,7 @@ def lower_cell(arch_id: str, shape_name: str, *, multi_pod: bool, mesh,
         "active_params": cfg.active_param_count(),
         "cost_extrapolation": {"unit_layers": unit, "n_units": n_units,
                                "f1": f1, "f2": f2, "coll1": coll1,
-                               "coll2": coll2},
+                               "coll2": coll2, "mem1": mem1, "mem2": mem2},
         "shapes": {"inputs": inputs, "params": params, "state": state,
                    "caches": cache},
     }

@@ -20,8 +20,12 @@ spans two 8-card hosts, whose network is slower. A record whose
 fake mesh) has no collective term, and `roofline_terms` says so
 (``t_collective_s`` null, the record's reason beside it) rather than
 reading it as 0 bytes. Its ``bytes_per_device`` are the step's arguments
-read once (a lower bound on the memory term) and its temporaries are not
-measured.
+read once (a lower bound on the memory term). The temporaries are counted
+on each rank's local shards in the collective pass
+(``memory.temp_bytes_per_device``; ``memory.temp_bytes`` summed over the
+mesh, the reference's convention, which ``hbm_gb_per_device`` divides by
+the device count), beside the unfused ``bytes_accessed_per_device``,
+which no term reads.
 
     PYTHONPATH=src python -m repro_torch.launch.roofline --reports DIR
 """
@@ -124,8 +128,8 @@ def roofline_terms(rec: dict) -> dict:
         "useful_compute_ratio": mflops / flops if flops else None,
         "roofline_fraction": (mflops / PEAK_BF16_FLOPS) / bound
         if bound > 0 else 0.0,
-        # argument bytes are per device; temporaries are counted only when
-        # the record has them (the port's dry-run does not)
+        # argument bytes are per device, temporaries summed over the mesh;
+        # a record without a memory count adds none
         "hbm_gb_per_device": (max(mem.get("argument_bytes", 0), 0) +
                               (max(temp, 0) / n_dev if temp is not None
                                else 0.0)) / 1e9,

@@ -181,9 +181,9 @@ def attention(params: Attention, x: torch.Tensor, *, n_heads: int,
     """Returns (out, new_cache). Prefill: cache=None, full seq. Decode:
     x is (B, 1, D) and cache holds past K/V."""
     b, l, _ = x.shape
-    q = dense(params.wq, x).reshape(b, l, n_heads, head_dim)
-    k = dense(params.wk, x).reshape(b, l, n_kv_heads, head_dim)
-    v = dense(params.wv, x).reshape(b, l, n_kv_heads, head_dim)
+    q = shard.heads(dense(params.wq, x), n_heads, head_dim)
+    k = shard.heads(dense(params.wk, x), n_kv_heads, head_dim)
+    v = shard.heads(dense(params.wv, x), n_kv_heads, head_dim)
     q = shard("attn_q", q)
     rep = n_heads // n_kv_heads
     if cache is None:

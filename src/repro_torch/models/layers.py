@@ -43,6 +43,17 @@ class Shard:
         """A weight as a product reads it."""
         return w
 
+    def heads(self, x: torch.Tensor, n_heads: int,
+              head_dim: int) -> torch.Tensor:
+        """A projection's output (..., n_heads * head_dim) split into
+        (..., n_heads, head_dim)."""
+        return x.reshape(*x.shape[:-1], n_heads, head_dim)
+
+    def keep(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, its gradient brought back on ``x``'s own layout (a step
+        after it may leave the gradient laid otherwise)."""
+        return x
+
     def like(self, x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
         """``x`` on ``ref``'s layout, dimension for dimension (a
         dimension of one, which broadcasts against ``ref``'s, whole), so

@@ -198,9 +198,11 @@ def moe(params: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
     out = shard.whole(gather_back, expert_out, *how)
 
     if hasattr(params, "shared"):
-        tokens = x.reshape(n_tok, d)
+        tokens = shard.keep(x.reshape(n_tok, d))
         n_sh = params.shared.up.w.shape[0]
         sh_in = tokens[None].expand(n_sh, n_tok, d)
-        out = out + _expert_ffn(params.shared, sh_in, gated, shard).sum(
-            dim=0)
+        # on the tokens' own layout, whatever the experts' left: the
+        # split back into (b, l) needs the rows split as b splits
+        out = shard.like(out + _expert_ffn(params.shared, sh_in, gated,
+                                           shard).sum(dim=0), tokens)
     return out.reshape(b, l, d), aux

@@ -188,11 +188,10 @@ def _cross_attention(blk: CrossBlock, x, cfg: ModelConfig, memory,
     hd = cfg.resolved_head_dim
     hx = rms_norm(blk.ln_x, x, cfg.norm_eps)
     b, l, _ = hx.shape
-    q = dense(blk.xattn.wq, hx).reshape(b, l, cfg.n_heads, hd)
+    q = shard.heads(dense(blk.xattn.wq, hx), cfg.n_heads, hd)
     if mem_cross_kv is None:
-        s = memory.shape[1]
-        k = dense(blk.xattn.wk, memory).reshape(b, s, cfg.n_kv_heads, hd)
-        v = dense(blk.xattn.wv, memory).reshape(b, s, cfg.n_kv_heads, hd)
+        k = shard.heads(dense(blk.xattn.wk, memory), cfg.n_kv_heads, hd)
+        v = shard.heads(dense(blk.xattn.wv, memory), cfg.n_kv_heads, hd)
     else:
         k, v = mem_cross_kv
     rep = cfg.n_heads // cfg.n_kv_heads

@@ -191,7 +191,9 @@ class ShardingPlan:
         """The forward's ``shard`` (`models.layers.Shard`) for this plan:
         ``shard(logical, x)`` gives a plain tensor back as it is and
         redistributes a ``DTensor`` to ``act_spec(logical)`` on its own
-        mesh; its methods run their steps on each rank's shards. Unlike
+        mesh, each axis that does not divide its dim dropped
+        (`sanitize`: a decode step's length-1 sequence); its methods run
+        their steps on each rank's shards. Unlike
         the reference's, which swallows the ``ValueError`` / ``KeyError``
         of a constraint that does not apply, an error here (a spec longer
         than the tensor, an axis the mesh lacks) raises."""
@@ -246,6 +248,34 @@ def spec_axes(entry) -> tuple[str, ...]:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
+def sanitize(spec: tuple, shape, mesh) -> tuple:
+    """Drop mesh axes from any dim they do not evenly divide (decode steps
+    have degenerate length-1 axes, batch=1 long-context cells, etc.), as
+    the reference's ``_sanitize`` does: the whole entry when it divides,
+    else its longest dividing prefix."""
+    axes = mesh_axes(mesh)
+    dims = list(spec) + [None] * (len(shape) - len(spec))
+    out = []
+    for d, size in zip(dims, shape):
+        if d is None:
+            out.append(None)
+            continue
+        names = spec_axes(d)
+        keep, n = [], 1
+        if size % math.prod(axes[a] for a in names) == 0:
+            keep = list(names)
+        else:
+            for a in names:
+                if size % (n * axes[a]) == 0:
+                    keep.append(a)
+                    n *= axes[a]
+                else:
+                    break
+        out.append(tuple(keep) if len(keep) > 1 else
+                   (keep[0] if keep else None))
+    return tuple(out)
+
+
 def placements(spec: Spec, mesh) -> list:
     """DTensor placements of ``spec`` in mesh-dimension order: ``Shard(d)``
     on every mesh dimension named by entry d (both for
@@ -277,6 +307,33 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+class _GradBack(torch.autograd.Function):
+    """The identity on a ``DTensor``, whose backward hands its gradient on
+    in the value's own layout and in contiguous memory, and copies it
+    only where it is not so already: a product's backward can leave a
+    gradient split otherwise (the MoE's shared experts split tokens 256
+    ways, which a batch of 128 cannot take back through a reshape) or
+    with a transposed local shard (the attention's, which the product's
+    backward then views as a matrix)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from torch.distributed.tensor import Replicate
+        # a partial sum's gradient is whole on every rank
+        ctx.layout = (x.device_mesh, tuple(
+            Replicate() if p.is_partial() else p for p in x.placements))
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, placements = ctx.layout
+        if tuple(grad.placements) != placements:
+            grad = grad.redistribute(mesh, placements)
+        if grad.to_local().is_contiguous():
+            return grad
+        return grad.clone(memory_format=torch.contiguous_format)
+
+
 class PlanShard(layers.Shard):
     """`ShardingPlan.shard_fn`: where a mesh run's forward lays each
     activation, and how its explicit steps run. Every method gives a
@@ -292,7 +349,9 @@ class PlanShard(layers.Shard):
         if len(spec) > x.ndim:
             raise ValueError(f"{logical}: spec {spec} has more entries "
                              f"than the tensor's {x.ndim} dims")
-        return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
+        mesh = x.device_mesh
+        return x.redistribute(mesh, placements(
+            sanitize(spec, x.shape, mesh), mesh))
 
     def scope(self, *tensors):
         """``implicit_replication``, so that the plain tensors the model
@@ -325,6 +384,30 @@ class PlanShard(layers.Shard):
         return w.redistribute(w.device_mesh, [
             p if names[i] == self.plan.model_axis else Replicate()
             for i, p in enumerate(w.placements)])
+
+    def heads(self, x, n_heads, head_dim):
+        """The split into heads of a ``DTensor`` whose last axis the
+        product left split over mesh axes that do not divide ``n_heads``
+        (a shard need not end on a head's edge, and DTensor cannot split
+        such an axis): that axis whole over them first. Its gradient goes
+        back to the product as `keep` hands it."""
+        if is_dtensor(x):
+            from torch.distributed.tensor import Replicate, Shard
+            x = self.keep(x)
+            last = x.ndim - 1
+            split = [i for i, p in enumerate(x.placements)
+                     if isinstance(p, Shard) and p.dim == last]
+            ways = math.prod(x.device_mesh.size(i) for i in split)
+            if n_heads % ways:
+                x = x.redistribute(x.device_mesh, [
+                    Replicate() if i in split else p
+                    for i, p in enumerate(x.placements)])
+        return super().heads(x, n_heads, head_dim)
+
+    def keep(self, x):
+        """A ``DTensor`` whose gradient comes back on its own layout, in
+        contiguous memory (`_GradBack`)."""
+        return _GradBack.apply(x) if is_dtensor(x) else x
 
     def like(self, x, ref):
         if not is_dtensor(ref):

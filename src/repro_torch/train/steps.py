@@ -77,7 +77,11 @@ def lm_loss(params: transformer.LM, cfg: ModelConfig, tokens, labels, *,
         # rank takes over its vocab slice and the sum reduces exactly; a
         # gather on a vocab-sharded DTensor yields a masked partial that
         # DTensor cannot reduce onto a shard
-        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        # (the vocab ids on the logits' own layout, so that the mask is
+        # made on each rank's slice and nothing vocab-wide is gathered)
+        vocab = shard.like(torch.arange(logits.shape[-1],
+                                        device=logits.device)[None, None],
+                           logits)
         label_logit = torch.sum(torch.where(
             vocab == labels.clamp_min(0)[..., None], logits, 0.0), dim=-1)
     else:
@@ -132,8 +136,11 @@ def loss_and_grads(model: transformer.LM, cfg: ModelConfig,
     if batch["tokens"].shape[0] % mb:
         raise ValueError(f"batch {batch['tokens'].shape[0]} does not split "
                          f"into {mb} microbatches")
-    parts = list(zip(batch["tokens"].chunk(mb), batch["labels"].chunk(mb),
-                     fr.chunk(mb) if fr is not None else [None] * mb))
+    # one microbatch is the batch as it is: ``chunk`` on a DTensor split
+    # along its rows gathers every row onto every rank
+    parts = [(batch["tokens"], batch["labels"], fr)] if mb == 1 else \
+        list(zip(batch["tokens"].chunk(mb), batch["labels"].chunk(mb),
+                 fr.chunk(mb) if fr is not None else [None] * mb))
     acc = loss_sum = None
     with _grads_on(params), shard.scope(batch["tokens"]):
         for tokens, labels, frontend in parts:

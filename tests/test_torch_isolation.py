@@ -243,3 +243,36 @@ def test_every_module_imports_and_launch_runs_with_jax_and_reference_blocked(
                          timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "ISOLATED-OK" in res.stdout
+
+
+def test_harness_clis_run_with_jax_and_reference_blocked(tmp_path):
+    """``python -m repro_torch.gpu_bridge_bench`` and ``python -m
+    repro_torch.perf_hillclimb`` (glm4-9b ``decode_32k`` kv-int8 at
+    published widths on the fake process group) with ``jax``,
+    ``repro`` and ``benchmarks`` blocked; each writes its record under
+    ``--out`` and nothing else."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = sys.modules['repro'] = None\n"
+        "sys.modules['benchmarks'] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from repro_torch import gpu_bridge_bench, perf_hillclimb\n"
+        "assert gpu_bridge_bench.main(['--out', 'bench']) == 0\n"
+        "assert perf_hillclimb.main(['--cell', 'glm4-9b:decode_32k:single',\n"
+        "                            '--variant', 'kv-int8',\n"
+        "                            '--out', 'climb']) == 0\n"
+        "assert not any(m.split('.')[0] in ('jax', 'repro', 'benchmarks')\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ISOLATED-OK')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         cwd=tmp_path, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "ISOLATED-OK" in res.stdout
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["bench", "climb"]
+    assert [p.name for p in (tmp_path / "bench").iterdir()] == \
+        ["gpu_bridge.json"]
+    assert [p.name for p in (tmp_path / "climb").iterdir()] == \
+        ["glm4-9b__decode_32k__single__kv-int8.json"]
