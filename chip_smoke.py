@@ -1588,6 +1588,154 @@ def phase_path_m(torch, info: dict, j: dict, k: dict) -> tuple:
     return summary, launches
 
 
+#: Path O: path F's prefill (qwen2-moe-a2.7b at published widths, LIVE
+#: batch x prompt, flash_attention on) through `make_prefill_step` with
+#: the sharding plan inside the forward, on a one-rank ``nccl`` mesh in a
+#: process of its own (``WORLD_SIZE=1``): the untied LM head
+#: (`sharding.rules.unembed_on_shards`) and the MoE's dispatch and
+#: combine on each rank's tokens (`rules.moe_dispatch_on_shards`) on the
+#: card. Its last-position logits must equal the same step's without the
+#: mesh bit for bit, on the same weights (the parameters placed on the
+#: mesh after the meshless step) and prompt.
+MESH_PREFILL_ARCH, MESH_PREFILL_SEED = "qwen2-moe-a2.7b", 0
+
+
+def path_o_child(out_path: str) -> int:
+    """The body of path O, in the process that ``WORLD_SIZE=1`` makes a
+    one-rank mesh: the meshless prefill, the parameters placed on the
+    mesh, the mesh prefill with the launch counters from zero, then warm
+    prefills of both; everything measured goes to ``out_path`` as
+    JSON."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.models.transformer import init_model
+    from repro_torch.sharding.rules import is_dtensor, make_plan
+    from repro_torch.sharding.state import map_state, place, place_batch
+    from repro_torch.train.steps import StepConfig, make_prefill_step
+    dist.init_process_group("nccl")
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = get_config(MESH_PREFILL_ARCH)
+        gen = torch.Generator(device="cuda").manual_seed(MESH_PREFILL_SEED)
+        t = time.monotonic()
+        model = init_model(cfg, gen, torch.float32, "cuda")
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t
+        rng = np.random.default_rng(MESH_PREFILL_SEED)
+        prompt = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (LIVE_BATCH, LIVE_PROMPT))).cuda()
+        step_cfg = StepConfig(use_flash=True, compute_dtype=torch.float32)
+        plain = make_prefill_step(cfg, step_cfg)
+        out = {"ms": {"mesh": [], "plain": []}, "peak": {},
+               "n_params": sum(p.numel() for p in model.parameters())}
+        torch.cuda.reset_peak_memory_stats()
+        out["ms"]["plain"].append(_sync_ms(torch, lambda: out.update(
+            want=plain(model, {"tokens": prompt})[0])))
+        out["peak"]["plain"] = torch.cuda.max_memory_allocated()
+        for _ in range(2):
+            out["ms"]["plain"].append(_sync_ms(
+                torch, lambda: plain(model, {"tokens": prompt})))
+        plan = make_plan(mesh, cfg, ShapeSpec("o", LIVE_PROMPT, LIVE_BATCH,
+                                              "prefill"))
+        t = time.monotonic()
+        map_state(model, lambda n, p: place(p, mesh,
+                                            plan.param_spec_for(n, p)))
+        torch.cuda.synchronize()
+        out["place_s"] = time.monotonic() - t
+        out["dtensor_params"] = all(is_dtensor(p)
+                                    for p in model.parameters())
+        batch = {"tokens": place_batch(prompt, plan)}
+        step = make_prefill_step(cfg, step_cfg, plan.shard_fn())
+        counters = _counters()
+        for m in counters.values():
+            m.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        out["ms"]["mesh"].append(_sync_ms(torch, lambda: out.update(
+            got=step(model, batch)[0])))
+        out["launches"] = {k: m.launches for k, m in counters.items()}
+        out["peak"]["mesh"] = torch.cuda.max_memory_allocated()
+        got, want = out.pop("got"), out.pop("want")
+        got = got.full_tensor() if is_dtensor(got) else got
+        out.update(equal=bool(torch.equal(got, want)),
+                   max_abs_err=float((got - want).abs().max()),
+                   shape=list(got.shape),
+                   finite=bool(torch.isfinite(got).all()))
+        del got, want
+        for _ in range(2):
+            out["ms"]["mesh"].append(_sync_ms(
+                torch, lambda: step(model, batch)))
+        out.update(init_s=init_s, mesh=dict(zip(mesh.mesh_dim_names,
+                                                mesh.shape)))
+    finally:
+        dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def phase_path_o(torch, info: dict, f: dict) -> tuple:
+    """Path O: `path_o_child` in a process with ``WORLD_SIZE=1`` on
+    ``nccl``; holds its mesh prefill's last-position logits bit-equal to
+    the meshless prefill's, finite, of shape (batch, padded vocab), its
+    flash_attention launches one a layer and no other kernel's. Prints
+    the first and warm ms and the peak bytes of both beside F's. Returns
+    (summary, launches)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MESH_PREFILL_ARCH)
+    _free(torch)
+    with tempfile.TemporaryDirectory(prefix="miredo-mesh-o-") as tmp:
+        out_path = os.path.join(tmp, "o.json")
+        env = dict(os.environ, WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                   PYTHONPATH=str(ROOT / "src"))
+        t = time.monotonic()
+        res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                              "--path-o", out_path], env=env,
+                             capture_output=True, text=True,
+                             timeout=MESH_TIMEOUT_S)
+        wall = time.monotonic() - t
+        require(res.returncode == 0, f"O: exit {res.returncode}: "
+                f"{res.stdout[-2000:]} {res.stderr[-3000:]}")
+        o = json.loads(Path(out_path).read_text())
+    launches = o["launches"]
+    print(f"[main O] {MESH_PREFILL_ARCH} prefill ({LIVE_BATCH} x "
+          f"{LIVE_PROMPT} tokens, flash_attention on, float32, "
+          f"{o['n_params']:,} parameters) through make_prefill_step with "
+          f"the plan on the mesh {o['mesh']} (nccl, one rank; every "
+          f"parameter a DTensor: {o['dtensor_params']}): last-position "
+          f"logits {o['shape']} bit-equal to the meshless step's: "
+          f"{o['equal']} (max abs err {o['max_abs_err']!r}); launches "
+          f"{launches}", flush=True)
+    print(f"[main O] prefill ms, mesh {[round(v, 3) for v in o['ms']['mesh']]}"
+          f" (first, then warm), meshless "
+          f"{[round(v, 3) for v in o['ms']['plain']]}, beside F's first "
+          f"{f['prefill_ms']:.3f} and warm flash "
+          f"{f['warm_prefill_ms']['flash']}; peak {o['peak']['mesh']:,} "
+          f"bytes allocated on the mesh, {o['peak']['plain']:,} without (F "
+          f"{f['peak_bytes']:,}); drawn in {o['init_s']:.2f} s, placed on "
+          f"the mesh in {o['place_s']:.3f} s; {wall:.1f} s wall in all; "
+          f"card {info['nvidia_smi']}", flush=True)
+    require(o["dtensor_params"], "O: the parameters are not on the mesh")
+    require(o["equal"] and o["finite"],
+            f"O: mesh prefill logits differ from the meshless step's: max "
+            f"abs err {o['max_abs_err']}, finite {o['finite']}")
+    require(o["shape"] == [LIVE_BATCH, cfg.padded_vocab()],
+            f"O: logits shape {o['shape']}")
+    require(launches == {"matmul_int8": 0, "flash_attention": cfg.n_layers,
+                         "ssd_scan": 0}, f"O: launches {launches}")
+    return {"mesh": o["mesh"], "equal": o["equal"],
+            "max_abs_err": o["max_abs_err"], "ms": o["ms"],
+            "peak_bytes": o["peak"], "init_s": o["init_s"],
+            "place_s": o["place_s"], "seconds": wall}, launches
+
+
 #: Path L's scorer pools: `baselines.heuristic_search`'s candidates at
 #: this budget for (pack, arch, shape, op). No row of path A's ffn_up pool
 #: passes eq. 9, so only the ungated pack runs the recursion on it; about
@@ -1770,25 +1918,43 @@ def _path_l_bridge(torch, info: dict, mm_rows: list[dict], timer) -> tuple:
     return {"rows": rows, "spearman": rho}, launches
 
 
+#: Path L's dry-run cells on the single-pod mesh: glm4-9b ``decode_32k``
+#: (the plan, its roofline), then two training cells whose memory and
+#: collectives a device the step on each rank's shards sets (the LM head,
+#: the loss, the MoE's dispatch), counted on the card machine's torch.
+DRYRUN_CELLS = (("glm4-9b", "decode_32k"), ("glm4-9b", "train_4k"),
+                ("qwen2-moe-a2.7b", "train_4k"))
+
+
 def _path_l_dryrun(info: dict) -> dict:
-    """``[plan]`` / ``[dryrun]``: `launch.dryrun` for glm4-9b decode_32k on
-    the single-pod mesh, in a subprocess (the fake process group is
-    process-wide): exit 0 and status ok; per-device parameter and cache
-    GB against the card's memory; `roofline_terms`."""
+    """``[plan]`` / ``[dryrun]``: `launch.dryrun` of `DRYRUN_CELLS` on
+    the single-pod mesh, each in a subprocess of its own (the fake process
+    group is process-wide), all at once: exit 0 and status ok; for
+    glm4-9b decode_32k per-device parameter and cache GB against the
+    card's memory and `roofline_terms`; for each cell its peak bytes and
+    collective bytes a device."""
     from repro_torch.launch.mesh import HBM_BYTES
     from repro_torch.launch.roofline import roofline_terms
     with tempfile.TemporaryDirectory(prefix="miredo-dryrun-") as out:
         t = time.monotonic()
-        res = subprocess.run(
+        procs = [subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             "glm4-9b", "--shape", "decode_32k", "--out", out],
+             arch, "--shape", shape, "--out", out],
             env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
-            capture_output=True, text=True, timeout=600)
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for arch, shape in DRYRUN_CELLS]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
         secs = time.monotonic() - t
-        require(res.returncode == 0, f"L: dryrun exit {res.returncode}: "
-                f"{res.stdout[-1500:]} {res.stderr[-1500:]}")
-        rec = json.loads((Path(out) / "glm4-9b__decode_32k__single.json")
-                         .read_text())
+        for (arch, shape), p, log in zip(DRYRUN_CELLS, procs, logs):
+            require(p.returncode == 0, f"L: dryrun {arch} {shape} exit "
+                    f"{p.returncode}: {log[-3000:]}")
+        recs = [json.loads((Path(out) / f"{arch}__{shape}__single.json")
+                           .read_text()) for arch, shape in DRYRUN_CELLS]
+    rec = recs[0]
     require(rec["status"] == "ok", f"L: dryrun status {rec['status']}")
     require(rec["flops_error"] is None and rec["flops_global"] > 0,
             f"L: dryrun counted no flops: {rec['flops_error']}")
@@ -1831,6 +1997,24 @@ def _path_l_dryrun(info: dict) -> dict:
           f"t_collective {terms['t_collective_s']!r} s at one card's "
           f"NVLink rate, beside t_compute {terms['t_compute_s']!r} s and "
           f"t_memory {terms['t_memory_s']!r} s", flush=True)
+    summary["cells"] = {}
+    for (arch, shape), r in zip(DRYRUN_CELLS, recs):
+        require(r["status"] == "ok" and r["memory"]["peak_bytes"] and
+                r["collective_bytes_per_device"] is not None,
+                f"L: dryrun {arch} {shape}: {r['status']} "
+                f"{r.get('memory_reason')}")
+        cell = {"peak_bytes": r["memory"]["peak_bytes"],
+                "collective_bytes_per_device":
+                r["collective_bytes_per_device"],
+                "seconds": r["seconds"]}
+        summary["cells"][f"{arch} {shape}"] = cell
+        print(f"[dryrun] {arch} {shape} on {r['mesh']}: peak "
+              f"{cell['peak_bytes']!r} bytes a device "
+              f"({cell['peak_bytes'] / 1e9:.2f} GB against the card's "
+              f"{HBM_BYTES / 1e9:.0f} GB), collective bytes a device "
+              f"{json.dumps(cell['collective_bytes_per_device'])} "
+              f"(the cell {r['seconds']} s; the three cells {secs:.1f} s "
+              f"wall at once)", flush=True)
     return summary
 
 
@@ -2447,11 +2631,16 @@ def flash_rows(torch, plan, out_c, timer) -> list[dict]:
             pick = select_flash_blocks(l, l, hd, bytes_el=4 if dt ==
                                        "float32" else 2, batch_heads=b * h,
                                        n_sms=sms)
+            one = next(r for r in rows if r["op"] == "prefill sweep" and
+                       r["dtype"] == dt and r["blocks"] == pick and
+                       (r["b"], r["lq"], r["h"], r["hd"]) == (b, l, h, hd))
             print(f"[flash sweep] {(b, l, h, hd)} causal {dt}: fastest "
                   f"{fastest} {sweep[fastest]:.4f} ms; bridge pick {pick} "
                   f"{sweep[pick]:.4f} ms "
-                  f"(+{100 * (sweep[pick] / sweep[fastest] - 1):.1f} %)",
-                  flush=True)
+                  f"(+{100 * (sweep[pick] / sweep[fastest] - 1):.1f} %); "
+                  f"bound {one['bound_ms']:.4f} ms ({one['bound_by']}), "
+                  f"SDPA {one['library_ms']:.4f} ms, plain "
+                  f"{one['plain_ms']:.4f} ms", flush=True)
     return rows
 
 
@@ -2662,6 +2851,8 @@ def main() -> int:
     lives["K"], launches["K"] = timed("K", phase_path_k, torch, info)
     lives["M"], launches["M"] = timed("M", phase_path_m, torch, info,
                                       lives["J"], lives["K"])
+    lives["O"], launches["O"] = timed("O", phase_path_o, torch, info,
+                                      lives["F"])
     lives["L"], launches["L"] = timed("L", phase_path_l, torch, info, mm,
                                       timer)
     lives["N"], launches["N"] = timed("N", phase_path_n, torch, info, timer)
@@ -2698,4 +2889,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--path-m"]:
         sys.exit(path_m_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--path-o"]:
+        sys.exit(path_o_child(sys.argv[2]))
     sys.exit(main())

@@ -181,9 +181,9 @@ def attention(params: Attention, x: torch.Tensor, *, n_heads: int,
     """Returns (out, new_cache). Prefill: cache=None, full seq. Decode:
     x is (B, 1, D) and cache holds past K/V."""
     b, l, _ = x.shape
-    q = shard.heads(dense(params.wq, x), n_heads, head_dim)
-    k = shard.heads(dense(params.wk, x), n_kv_heads, head_dim)
-    v = shard.heads(dense(params.wv, x), n_kv_heads, head_dim)
+    q = shard.heads(dense(params.wq, x, shard), n_heads, head_dim)
+    k = shard.heads(dense(params.wk, x, shard), n_kv_heads, head_dim)
+    v = shard.heads(dense(params.wv, x, shard), n_kv_heads, head_dim)
     q = shard("attn_q", q)
     rep = n_heads // n_kv_heads
     if cache is None:
@@ -193,7 +193,8 @@ def attention(params: Attention, x: torch.Tensor, *, n_heads: int,
             k = apply_rope(k, pos, rope_theta)
         kf, vf = _repeat_kv(k, rep), _repeat_kv(v, rep)
         if use_flash and causal and l >= FLASH_MIN_LEN:
-            out = _flash(q, kf, vf)
+            # on a mesh the kernel runs on each rank's local shards
+            out = shard.attend(lambda q, k, v, _: _flash(q, k, v), q, kf, vf)
         else:
             out = attend(q, kf, vf, causal=causal,
                          chunked=ATTN_IMPL == "chunked" and l >= 2048,
@@ -246,7 +247,7 @@ def attention(params: Attention, x: torch.Tensor, *, n_heads: int,
                      shard=shard)
     out = shard("attn_out", out)
     out = out.reshape(b, l, n_heads * head_dim)
-    return dense(params.wo, out), new_cache
+    return dense(params.wo, out, shard), new_cache
 
 
 def init_kv_cache(batch: int, max_seq: int, n_kv_heads: int, head_dim: int,

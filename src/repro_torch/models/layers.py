@@ -76,10 +76,32 @@ class Shard:
         whose layout the batch follows."""
         return fn(*args)
 
-    def whole(self, fn, *args):
-        """``fn(*args)`` on whole tensors: on a mesh every rank runs it on
-        the same, replicated values."""
-        return fn(*args)
+    def unembed(self, table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """The LM head ``x @ table.T``, in x's dtype."""
+        return x @ table.to(x.dtype).T
+
+    def loss(self, fn, logits, labels):
+        """``fn(logits, labels)``, a loss over (B, L, V) logits, which may
+        take ``lo`` (the vocab id of the logits' first column) and
+        ``reduce(op, t, over)`` (``op`` "max" or "sum" over the ranks
+        that hold the other vocab slices, ``over="vocab"``, or the other
+        tokens, ``"tokens"``) when the logits are split."""
+        return fn(logits, labels)
+
+    def moe_dispatch(self, fn, x, router_w):
+        """``fn(tokens, router_w, group)`` on the (T, D) tokens of x (B,
+        L, D): (the experts' input (E, C, D), how the combine finds each
+        token's slots: three tensors by token, the aux loss). ``group``
+        (None: one device holding every token and expert) says where a
+        rank's tokens stand among all of them and which experts it
+        builds (`models.moe.TokenGroup`)."""
+        return fn(x.reshape(-1, x.shape[-1]), router_w, None)
+
+    def moe_combine(self, fn, expert_out, how, x):
+        """``fn(expert_out, *how, group)``, the experts' output back at
+        the (T, D) tokens of x, in x's shape; ``how`` and ``group`` as
+        `moe_dispatch` gave and took them."""
+        return fn(expert_out, *how, None).reshape(x.shape)
 
 
 #: The forward's default ``shard``.
@@ -216,9 +238,15 @@ def init_dense(generator, d_in: int, d_out: int, dtype=torch.float32,
                            generator)
 
 
-def dense(params: Dense, x: torch.Tensor) -> torch.Tensor:
-    """A plain product outside any kernel, as the reference leaves it."""
-    return x @ params.w.to(x.dtype)
+def dense(params: Dense, x: torch.Tensor,
+          shard: Shard = no_shard) -> torch.Tensor:
+    """A plain product outside any kernel, as the reference leaves it. On
+    a mesh a weight whose gradient the step takes is read through
+    ``shard.keep``: its gradient goes back onto its own shards as the
+    backward reaches it, where DTensor's product leaves it whole (a
+    partial sum) until the backward ends, every layer's at once."""
+    w = shard.keep(params.w) if params.w.requires_grad else params.w
+    return x @ w.to(x.dtype)
 
 
 class MLP(nn.Module):
@@ -239,14 +267,14 @@ def init_mlp(generator, d_model: int, d_ff: int, gated: bool,
 
 def mlp(params: MLP, x: torch.Tensor, gated: bool,
         shard=no_shard) -> torch.Tensor:
-    h = dense(params.up, x)
+    h = dense(params.up, x, shard)
     if gated:
-        h = F.silu(dense(params.gate, x)) * h
+        h = F.silu(dense(params.gate, x, shard)) * h
     else:
         # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(h, approximate="tanh")
     h = shard("ffn_hidden", h)
-    return dense(params.down, h)
+    return dense(params.down, h, shard)
 
 
 # ---------------------------------------------------------------------------
@@ -300,5 +328,6 @@ def embed(params: Embedding, ids: torch.Tensor, dtype=torch.bfloat16,
     return shard.rows(params.table, ids).to(dtype)
 
 
-def unembed(params: Embedding, x: torch.Tensor) -> torch.Tensor:
-    return x @ params.table.to(x.dtype).T
+def unembed(params: Embedding, x: torch.Tensor,
+            shard: Shard = no_shard) -> torch.Tensor:
+    return shard.unembed(params.table, x)

@@ -194,7 +194,8 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 
 def ssd_inputs(params: Mamba2, x: torch.Tensor, cfg,
-               conv_state: torch.Tensor | None = None):
+               conv_state: torch.Tensor | None = None,
+               shard: Shard = no_shard):
     """The block's projection and conv, up to the SSD's operands:
     returns ``(z, xs (B,L,H,P), dt (B,L,H) f32, a (H,), b, c (B,L,G,N),
     new_conv_state)``."""
@@ -204,7 +205,7 @@ def ssd_inputs(params: Mamba2, x: torch.Tensor, cfg,
     gn = cfg.ssm_groups * cfg.ssm_state
     meta = {"d_inner": d_inner, "gn": gn, "n_heads": n_heads}
     bsz, l, _ = x.shape
-    z, xbc, dt = _split_proj(meta, dense(params.in_proj, x))
+    z, xbc, dt = _split_proj(meta, dense(params.in_proj, x, shard))
     dt = F.softplus(dt.to(torch.float32) + params.dt_bias)
     a = -torch.exp(params.a_log)                    # (H,) negative
     xbc, new_conv = _causal_conv(xbc, params.conv_w, params.conv_b,
@@ -225,7 +226,7 @@ def mamba2_block(params: Mamba2, x: torch.Tensor, cfg, *,
     bsz, l, _ = x.shape
     decode = state is not None and l == 1
     z, xs, dt, a, bmat, cmat, new_conv = ssd_inputs(
-        params, x, cfg, state.conv if state is not None else None)
+        params, x, cfg, state.conv if state is not None else None, shard)
     xs = shard("ssm_x", xs)
     if decode:
         # on a mesh each rank's batch rows, every head: DTensor would fold
@@ -252,7 +253,7 @@ def mamba2_block(params: Mamba2, x: torch.Tensor, cfg, *,
         y = y[:, :l]
     y = y.reshape(bsz, l, -1)
     y = rms_norm(params.norm, y * F.silu(z.to(y.dtype)))
-    out = dense(params.out_proj, y)
+    out = dense(params.out_proj, y, shard)
     return out, SSMState(h=h_new, conv=new_conv)
 
 

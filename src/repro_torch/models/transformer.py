@@ -188,16 +188,18 @@ def _cross_attention(blk: CrossBlock, x, cfg: ModelConfig, memory,
     hd = cfg.resolved_head_dim
     hx = rms_norm(blk.ln_x, x, cfg.norm_eps)
     b, l, _ = hx.shape
-    q = shard.heads(dense(blk.xattn.wq, hx), cfg.n_heads, hd)
+    q = shard.heads(dense(blk.xattn.wq, hx, shard), cfg.n_heads, hd)
     if mem_cross_kv is None:
-        k = shard.heads(dense(blk.xattn.wk, memory), cfg.n_kv_heads, hd)
-        v = shard.heads(dense(blk.xattn.wv, memory), cfg.n_kv_heads, hd)
+        k = shard.heads(dense(blk.xattn.wk, memory, shard), cfg.n_kv_heads,
+                        hd)
+        v = shard.heads(dense(blk.xattn.wv, memory, shard), cfg.n_kv_heads,
+                        hd)
     else:
         k, v = mem_cross_kv
     rep = cfg.n_heads // cfg.n_kv_heads
     o = attend(q, _repeat_kv(k, rep), _repeat_kv(v, rep), causal=False,
                shard=shard)
-    return x + dense(blk.xattn.wo, o.reshape(b, l, -1)), (k, v)
+    return x + dense(blk.xattn.wo, o.reshape(b, l, -1), shard), (k, v)
 
 
 def _attn_block_apply(blk: AttnBlock, x, cfg: ModelConfig, cache, *,
@@ -419,5 +421,5 @@ def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor, *,
         table = params.embed if cfg.tie_embeddings else params.unembed
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        logits = shard("logits", unembed(table, x))
+        logits = shard("logits", unembed(table, x, shard))
     return ForwardOut(logits=logits, caches=new_caches, aux_loss=aux)

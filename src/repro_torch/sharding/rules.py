@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 from typing import Any
 
@@ -430,22 +431,27 @@ class PlanShard(layers.Shard):
             return fn(*args)
         return batch_on_shards(fn, lead, args, batch_axes, out_axes)
 
-    def whole(self, fn, *args):
-        """``fn`` on every rank on the whole values: each ``DTensor``
-        argument gathered (replicated), ``fn`` run on the local tensors,
-        each tensor it returns a replicated ``DTensor`` (its gradient the
-        whole gradient, the same on every rank)."""
-        mesh = next((a.device_mesh for a in args if is_dtensor(a)), None)
-        if mesh is None:
-            return fn(*args)
-        from torch.distributed.tensor import DTensor, Replicate
-        from torch.utils._pytree import tree_map
-        rep = [Replicate()] * mesh.ndim
-        local = [a.redistribute(mesh, rep).to_local() if is_dtensor(a)
-                 else a for a in args]
-        return tree_map(
-            lambda t: DTensor.from_local(t, mesh, rep, run_check=False)
-            if isinstance(t, torch.Tensor) else t, fn(*local))
+    def unembed(self, table, x):
+        """`unembed_on_shards` of a ``DTensor`` table."""
+        return unembed_on_shards(self.plan, table, x) if is_dtensor(table) \
+            else super().unembed(table, x)
+
+    def loss(self, fn, logits, labels):
+        """`loss_on_shards` of ``DTensor`` logits."""
+        return loss_on_shards(self.plan, fn, logits, labels) \
+            if is_dtensor(logits) else fn(logits, labels)
+
+    def moe_dispatch(self, fn, x, router_w):
+        """`moe_dispatch_on_shards` of ``DTensor`` tokens."""
+        if not is_dtensor(x):
+            return super().moe_dispatch(fn, x, router_w)
+        return moe_dispatch_on_shards(self.plan, fn, x, self.weight(router_w))
+
+    def moe_combine(self, fn, expert_out, how, x):
+        """`moe_combine_on_shards` of ``DTensor`` tokens."""
+        if not is_dtensor(x):
+            return super().moe_combine(fn, expert_out, how, x)
+        return moe_combine_on_shards(self.plan, fn, expert_out, how, x)
 
 
 def embedding_rows(table, ids):
@@ -616,6 +622,374 @@ def batch_on_shards(fn, lead, args, batch_axes, out_axes):
     return local_map(fn, out_placements=outs, in_placements=tuple(ins),
                      in_grad_placements=tuple(grads),
                      device_mesh=mesh)(*placed)
+
+
+def _collective(name: str):
+    """A functional collective by its newer name (``all_gather_single``,
+    ``reduce_scatter_single``), or by the older ``*_tensor`` on a torch
+    that lacks it."""
+    from torch.distributed import _functional_collectives as funcol
+    return getattr(funcol, name, None) or \
+        getattr(funcol, name.replace("_single", "_tensor"))
+
+
+def _waited(t):
+    from torch.distributed import _functional_collectives as funcol
+    return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+
+def _all_reduce(t, op: str, mesh, dims):
+    """``t`` reduced by ``op`` ("sum" or "max") over the mesh dimensions
+    ``dims``, one after another."""
+    from torch.distributed import _functional_collectives as funcol
+    for d in dims:
+        t = funcol.all_reduce(t, op, (mesh, d))
+    return _waited(t)
+
+
+def _gather_dim(t, mesh, dims, dim: int):
+    """A local shard's dimension ``dim`` gathered over the mesh
+    dimensions ``dims`` (the major first; the minor gathered first)."""
+    gather = _collective("all_gather_single")
+    for d in reversed(dims):
+        t = _waited(gather(t.contiguous(), dim, (mesh, d)))
+    return t
+
+
+def _scatter_dim(t, mesh, dims, dim: int):
+    """`_gather_dim`'s adjoint: ``t`` summed over the mesh dimensions
+    ``dims`` and split along ``dim``, each rank its block."""
+    scatter = _collective("reduce_scatter_single")
+    for d in dims:
+        t = _waited(scatter(t.contiguous(), "sum", dim, (mesh, d)))
+    return t
+
+
+class _SumOver(torch.autograd.Function):
+    """Each rank's share of a sum, summed over mesh dimensions: the
+    forward an all-reduce, the backward the identity. The sum is used
+    alike on every rank, so its gradient is whole there, and each share
+    takes it as it is."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dims):
+        return _all_reduce(t, "sum", mesh, dims)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _GradSumOver(torch.autograd.Function):
+    """The identity, whose backward sums the gradient over mesh
+    dimensions: a value each rank holds whole but uses for its own share
+    of a result (a MoE layer's tokens for the experts a rank builds, its
+    experts' outputs for its own tokens) takes a share of the gradient on
+    each."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dims):
+        ctx.group = (mesh, dims)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, "sum", *ctx.group), None, None
+
+
+class MeshGroups:
+    """Named groups of mesh dimensions (those of size one left out) and
+    the reductions over them that a step on each rank's local shards
+    makes itself: ``reduce(op, t, over)`` ("max", of a value that carries
+    no gradient, or "sum", `_SumOver`), ``grad_sum(t, over)``
+    (`_GradSumOver`); ``index(over)`` is this rank's place among the
+    group's ``size(over)`` ranks, the first dimension major."""
+
+    def __init__(self, mesh, **groups):
+        self.mesh = mesh
+        self.groups = {k: tuple(d for d in dims if mesh.size(d) > 1)
+                       for k, dims in groups.items()}
+
+    def reduce(self, op: str, t, over: str):
+        dims = self.groups[over]
+        if not dims:
+            return t
+        if op == "max":
+            return _all_reduce(t, "max", self.mesh, dims)
+        if op != "sum":
+            raise ValueError(f"reduce {op!r}")
+        return _SumOver.apply(t, self.mesh, dims)
+
+    def grad_sum(self, t, over: str):
+        dims = self.groups[over]
+        return _GradSumOver.apply(t, self.mesh, dims) if dims else t
+
+    def size(self, over: str) -> int:
+        return math.prod(self.mesh.size(d) for d in self.groups[over])
+
+    def index(self, over: str) -> int:
+        coord, r = self.mesh.get_coordinate(), 0
+        for d in self.groups[over]:
+            r = r * self.mesh.size(d) + coord[d]
+        return r
+
+
+def _split_by(pl, dims) -> list[int]:
+    """The mesh dimensions whose placement in ``pl`` shards one of the
+    tensor dimensions ``dims``."""
+    from torch.distributed.tensor import Shard
+    return [i for i, p in enumerate(pl)
+            if isinstance(p, Shard) and p.dim in dims]
+
+
+def unembed_on_shards(plan: ShardingPlan, table, x):
+    """The LM head ``x @ table.T`` on each rank's shards, the product laid
+    directly on ``act_spec("logits")``: the table's ``data`` shards
+    gathered (FSDP's per-layer all-gather), x's rows (batch, or sequence
+    under ``shard_seq``) as the logits lay theirs, whole over the vocab's
+    mesh axis, and each rank's rows multiplied by its own vocab slice
+    (``local_map``). The backward hands x's gradient back as a partial
+    sum over the vocab's axis and the table's as one over the rows' axes,
+    which the gather's backward reduce-scatters onto the table's own
+    layout. A served step whose rows weigh less than the table's slice
+    moves the rows instead (`_head_by_rows`). Left to DTensor's choice,
+    the product took the global batch against the whole vocab on every
+    rank. On one rank it is the plain product, forward and backward, bit
+    for bit."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    if not is_dtensor(x):
+        x = replicated(x, mesh)
+    last = x.ndim - 1
+    out = placements(sanitize(plan.act_spec("logits"),
+                              (*x.shape[:-1], table.shape[0]), mesh), mesh)
+    vocab, rows = _split_by(out, (last,)), _split_by(out, range(last))
+    feat = _split_by(table.placements, (1,))
+    x_lay = [Replicate() if i in vocab else p for i, p in enumerate(out)]
+    x = x.redistribute(mesh, x_lay)
+    t_lay = [Shard(0) if i in vocab else Replicate()
+             for i in range(mesh.ndim)]
+    fn = lambda a, t: a @ t.to(a.dtype).T
+    if feat and rows in (feat, []) and not (torch.is_grad_enabled() and
+                                           table.requires_grad):
+        # a served step: the rows moved, where they weigh less than the
+        # table's slice (a decode step's few tokens)
+        n = math.prod(mesh.size(i) for i in feat)
+        local = x.to_local()
+        moved = local.numel() * (n if rows else 1) * (1 + table.shape[0] // (
+            math.prod(mesh.size(i) for i in vocab) * local.shape[-1]))
+        if moved * local.element_size() < table.to_local().numel() * n * \
+                table.element_size():
+            fn = functools.partial(_head_by_rows, mesh=mesh, feat=tuple(feat),
+                                   dim=out[feat[0]].dim if rows else None)
+            t_lay = table.placements
+    table = table.redistribute(mesh, t_lay)
+    return local_map(
+        fn, out_placements=out, in_placements=(x_lay, t_lay),
+        in_grad_placements=(
+            [Partial() if i in vocab else p for i, p in enumerate(x_lay)],
+            [Partial() if i in rows else p for i, p in enumerate(t_lay)]),
+        device_mesh=mesh)(x, table)
+
+
+def _head_by_rows(a, t, *, mesh, feat, dim: int | None):
+    """A served LM head on a rank's rows ``a`` and its table shard ``t``
+    (its vocab slice, its block of the features split over ``feat``, the
+    mesh dimensions that split the rows along ``dim``, or that no axis
+    splits with ``dim`` None): every row of the group gathered,
+    multiplied by the rank's block of features, and the partial products
+    summed back onto each rank's rows. It moves the rows and their
+    logits, where a few tokens' weigh less than the table's slice."""
+    if dim is not None:
+        a = _gather_dim(a, mesh, feat, dim)
+    k = t.shape[1]
+    j = MeshGroups(mesh, f=feat).index("f")
+    part = a[..., j * k:(j + 1) * k] @ t.to(a.dtype).T
+    if dim is None:
+        return _all_reduce(part, "sum", mesh, feat)
+    return _scatter_dim(part, mesh, feat, dim)
+
+
+def loss_on_shards(plan: ShardingPlan, fn, logits, labels):
+    """``fn(logits, labels, lo=, reduce=)``, a loss over (B, L, V) logits
+    and (B, L) labels, on each rank's shards: the logits on
+    ``act_spec("logits")``, the labels on the logits' rows, and ``fn`` run
+    on the local tensors (``local_map``) with ``lo`` the first vocab id
+    of the rank's slice and ``reduce(op, t, over)`` its reductions over
+    the ranks that hold the other vocab slices (``over="vocab"``) or the
+    other tokens (``"tokens"``; `MeshGroups.reduce`). The loss comes back
+    replicated, and each rank's gradient of the logits is its own shard's:
+    nothing of the logits is gathered, forward or backward."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = logits.device_mesh
+    last = logits.ndim - 1
+    lay = placements(sanitize(plan.act_spec("logits"), logits.shape, mesh),
+                     mesh)
+    vocab = _split_by(lay, (last,))
+    lab_lay = [Replicate() if i in vocab else p for i, p in enumerate(lay)]
+    logits = logits.redistribute(mesh, lay)
+    if not is_dtensor(labels):
+        labels = replicated(labels, mesh)
+    labels = labels.redistribute(mesh, lab_lay)
+    groups = MeshGroups(mesh, vocab=vocab, tokens=_split_by(lay,
+                                                            range(last)))
+    lo = groups.index("vocab") * (logits.shape[-1] // groups.size("vocab"))
+    return local_map(
+        lambda lg, lb: fn(lg, lb, lo=lo, reduce=groups.reduce),
+        out_placements=[Replicate()] * mesh.ndim,
+        in_placements=(lay, lab_lay), in_grad_placements=(lay, lab_lay),
+        device_mesh=mesh)(logits, labels)
+
+
+class MoETokens(MeshGroups):
+    """A MoE layer's tokens on a mesh (`models.moe.TokenGroup`'s hooks):
+    each rank holds the token rows of x's ``act_spec("hidden")`` layout,
+    split over the ``tokens`` mesh dimensions (each rank's batch rows, one
+    run of tokens in the global order, or under ``shard_seq`` a slice of
+    every row's sequence, ``segments`` runs), and builds the slots of the
+    experts it holds on ``moe_expert_in``'s layout (expert parallelism
+    splits them over the ``experts`` dimension, the model axis)."""
+
+    def __init__(self, mesh, tokens, experts, *, seq: bool, segments: int,
+                 n_tok: int):
+        super().__init__(mesh, tokens=tokens, experts=experts)
+        self.seq, self.segments, self.n_tok = seq, segments, n_tok
+
+    def offsets(self, counts):
+        """(S, E) routed slots per expert in each of this rank's runs ->
+        (S, E) slots of each expert in every run before each, over all
+        ranks in the global token order (runs rank after rank, or under
+        ``shard_seq`` row after row): only the counts are gathered."""
+        dims = self.groups["tokens"]
+        if not dims:
+            return None
+        gather = _collective("all_gather_single")
+        c = counts[None]
+        for d in reversed(dims):
+            c = _waited(gather(c, 0, (self.mesh, d)))
+        order = c.transpose(0, 1) if self.seq else c
+        flat = order.reshape(-1, counts.shape[-1])
+        before = (torch.cumsum(flat, dim=0) - flat).reshape(order.shape)
+        r = self.index("tokens")
+        return before[:, r] if self.seq else before[r]
+
+    def experts(self, n: int) -> tuple[int, int]:
+        per = n // self.size("experts")
+        lo = self.index("experts") * per
+        return lo, lo + per
+
+    def mean(self, t):
+        if not self.groups["tokens"]:
+            return t.mean(dim=0)
+        return self.reduce("sum", t.sum(dim=0), "tokens") / self.n_tok
+
+
+def _moe_layouts(plan: ShardingPlan, x, n_experts: int):
+    """(x's ``hidden`` layout, the experts' ``moe_expert_in`` layout, the
+    layout of a tensor by token (its first dimension split as x's
+    tokens), the `MoETokens` of x)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    lay = placements(sanitize(plan.act_spec("hidden"), x.shape, mesh), mesh)
+    ex = placements(sanitize(plan.act_spec("moe_expert_in")[:1],
+                             (n_experts,), mesh), mesh)
+    tokens = _split_by(lay, (0, 1))
+    seq = bool(_split_by(lay, (1,)))
+    tok = [Shard(0) if i in tokens else Replicate()
+           for i in range(mesh.ndim)]
+    group = MoETokens(mesh, tokens, _split_by(ex, (0,)), seq=seq,
+                      segments=x.shape[0] if seq else 1,
+                      n_tok=x.shape[0] * x.shape[1])
+    return lay, ex, tok, group
+
+
+def moe_dispatch_on_shards(plan: ShardingPlan, fn, x, router_w):
+    """`layers.Shard.moe_dispatch` on each rank's own tokens: x on
+    ``act_spec("hidden")``, the router whole, and ``fn(tokens, router_w,
+    group)`` run on the local tensors (``local_map``) with ``group`` the
+    `MoETokens` of the rank. Its positions are the one-device ones (the
+    counts of routed slots gathered, each slot placed after those of all
+    the tokens before it), so its ``keep`` is too; it builds the slots of
+    its own experts and sums them over the tokens' ranks (they are
+    disjoint), which lands the buffer on ``moe_expert_in``'s layout: whole
+    over ``data``, split over ``model`` under expert parallelism. Every
+    collective is explicit; no layout is left to DTensor's choice, whose
+    ties, broken differently on two ranks, sent them into different
+    collectives. Returns (expert_in, how: three tensors by token, the aux
+    loss, replicated)."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    lay, ex, tok, group = _moe_layouts(plan, x, router_w.shape[-1])
+    x = x.redistribute(mesh, lay)
+    rep = [Replicate()] * mesh.ndim
+    if not is_dtensor(router_w):
+        router_w = replicated(router_w, mesh)
+    router_w = router_w.redistribute(mesh, rep)
+    w_grad = [Partial() if i in group.groups["tokens"] else Replicate()
+              for i in range(mesh.ndim)]
+
+    def local(xl, wl):
+        expert_in, how, aux = fn(xl.reshape(-1, xl.shape[-1]), wl, group)
+        return (expert_in, *how, aux)
+
+    out = local_map(local, out_placements=(ex, tok, tok, tok, rep),
+                    in_placements=(lay, rep),
+                    in_grad_placements=(lay, w_grad),
+                    device_mesh=mesh)(x, router_w)
+    return out[0], tuple(out[1:4]), out[4]
+
+
+def moe_combine_on_shards(plan: ShardingPlan, fn, expert_out, how, x):
+    """`layers.Shard.moe_combine` on each rank's own tokens: the experts'
+    output on ``moe_expert_out``'s layout, ``how`` as the dispatch made
+    it, and ``fn(expert_out, *how, group)`` run on the local tensors,
+    whose (T, D) rows come back on x's ``hidden`` layout."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    lay, ex, tok, group = _moe_layouts(plan, x, expert_out.shape[0])
+    shape = list(x.shape)
+    for i in _split_by(lay, (0, 1)):
+        shape[lay[i].dim] //= mesh.size(i)
+    expert_out = expert_out.redistribute(mesh, ex)
+    return local_map(lambda eo, *h: fn(eo, *h, group).reshape(shape),
+                     out_placements=lay, in_placements=(ex, tok, tok, tok),
+                     in_grad_placements=(ex, tok, tok, tok),
+                     device_mesh=mesh)(expert_out, *how)
+
+
+def microbatch_rows(t: torch.Tensor, microbatches: int,
+                    ranks: int) -> torch.Tensor:
+    """A global batch's rows in the order that makes the i-th local chunk
+    of each of ``ranks`` ranks (the rows split over them, one block
+    each) that rank's share of microbatch i, the reference's global rows
+    ``[i * B / mb, (i + 1) * B / mb)``: (mb, ranks, B / (mb * ranks))
+    blocks of rows put rank-major."""
+    mb, b = microbatches, t.shape[0]
+    return t.reshape(mb, ranks, b // (mb * ranks), *t.shape[1:]) \
+        .transpose(0, 1).reshape(t.shape)
+
+
+def local_microbatches(t, microbatches: int):
+    """The ``microbatches`` chunks of a batch tensor along its rows. A
+    ``DTensor`` whose rows are split over n ranks with B a multiple of
+    ``microbatches * n`` is taken to be in `microbatch_rows`' order: each
+    rank's i-th local chunk is made a ``DTensor`` as it lies, the
+    reference's microbatch i in its own order, and nothing is gathered;
+    any other tensor is ``t.chunk`` (which gathers a ``DTensor``'s split
+    rows onto every rank)."""
+    n = math.prod(t.device_mesh.size(i) for i in _split_by(
+        t.placements, (0,))) if is_dtensor(t) else 1
+    if n == 1 or t.shape[0] % (microbatches * n):
+        return list(t.chunk(microbatches))
+    from torch.distributed.tensor import DTensor
+    shape = (t.shape[0] // microbatches, *t.shape[1:])
+    stride = torch.empty(shape, device="meta").stride()
+    return [DTensor.from_local(c, t.device_mesh, t.placements,
+                               run_check=False, shape=shape, stride=stride)
+            for c in t.to_local().chunk(microbatches)]
 
 
 def replicated(t, mesh):

@@ -16,12 +16,14 @@ one-device state bit for bit.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Mapping
 
 import torch
 from torch import nn
 
-from repro_torch.sharding.rules import ShardingPlan, is_dtensor, placements
+from repro_torch.sharding.rules import ShardingPlan, is_dtensor, mesh_axes, \
+    microbatch_rows, placements, sanitize, spec_axes
 
 
 def place(t: torch.Tensor, mesh, spec) -> torch.Tensor:
@@ -30,6 +32,25 @@ def place(t: torch.Tensor, mesh, spec) -> torch.Tensor:
     from torch.distributed.tensor import distribute_tensor
     return distribute_tensor(t.detach(), mesh, placements(spec, mesh),
                              src_data_rank=None)
+
+
+def place_batch(t: torch.Tensor, plan: ShardingPlan,
+                microbatches: int = 1) -> torch.Tensor:
+    """A batch tensor (the same on every rank) on the plan's mesh: of rank
+    >= 2 on its batch spec (each axis that does not divide its dim
+    dropped, `rules.sanitize`), else replicated. With ``microbatches`` =
+    mb > 1 and its rows split over n ranks with B a multiple of mb * n,
+    the rows are first put in `rules.microbatch_rows`' order, so that
+    each rank's i-th local chunk is its share of the reference's
+    microbatch i (`rules.local_microbatches`)."""
+    spec = sanitize(plan.batch_spec(), t.shape, plan.mesh) \
+        if t.ndim >= 2 else ()
+    ranks = math.prod(mesh_axes(plan.mesh)[a]
+                      for a in spec_axes(spec[0])) if spec else 1
+    if microbatches > 1 and ranks > 1 and \
+            t.shape[0] % (microbatches * ranks) == 0:
+        t = microbatch_rows(t, microbatches, ranks)
+    return place(t, plan.mesh, spec)
 
 
 def _param_name(name: str) -> str:
@@ -65,12 +86,16 @@ def map_state(tree, fn: Callable, prefix: str = ""):
     if isinstance(tree, torch.Tensor):
         return fn(prefix.rstrip("."), tree)
     if isinstance(tree, nn.Module):
-        for name, p in list(tree.named_parameters()):
+        # by name: a list of the parameters themselves would keep every
+        # replaced one alive to the end
+        for name in [n for n, _ in tree.named_parameters()]:
             owner, _, attr = name.rpartition(".")
             mod = tree.get_submodule(owner) if owner else tree
+            p = getattr(mod, attr)
             new = fn(prefix + name, p)
             if new is not p:
                 setattr(mod, attr, nn.Parameter(new, requires_grad=False))
+            del p, new
         return tree
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(map_state(sub, fn, f"{prefix}{field}.")

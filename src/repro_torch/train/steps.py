@@ -30,7 +30,7 @@ from repro_torch.models.layers import no_shard
 from repro_torch.models.ssm import SSMState, init_ssm_state
 from repro_torch.runtime.compression import compress_grads_with_feedback, \
     init_residuals
-from repro_torch.sharding.rules import is_dtensor
+from repro_torch.sharding.rules import is_dtensor, local_microbatches
 from repro_torch.train.optimizer import AdamWState, OptimizerConfig, \
     adamw_update, init_adamw
 
@@ -54,41 +54,50 @@ class StepConfig:
     aux_loss_weight: float = 0.01
 
 
-def lm_loss(params: transformer.LM, cfg: ModelConfig, tokens, labels, *,
-            step_cfg: StepConfig, frontend=None, shard=no_shard):
-    """Returns (loss + aux_loss_weight * aux, {"loss", "aux_loss"}): the
-    mean cross-entropy over the positions whose label is >= 0, from
+def token_loss(logits, labels, lo: int = 0, reduce=None):
+    """The mean cross-entropy over the positions whose label is >= 0, from
     float32 logits and a stable logsumexp whose max carries no gradient
     (the reference's ``stop_gradient``). The label logit is a gather
     where the reference contracts with a one-hot: the same value, and no
-    (B, L, V) one-hot. On vocab-sharded ``DTensor`` logits the max and
-    the sum reduce across the shards, and the label logit is a masked
-    sum: the same values."""
+    (B, L, V) one-hot. On logits split over ranks (`layers.Shard.loss`)
+    ``lo`` is the vocab id of the first column and ``reduce(op, t, over)``
+    reduces over the other ranks' vocab slices and tokens: the max and
+    the sum over ``vocab``, the label logit as the sum of the one rank's
+    entry that holds it and the others' zeros, the token sums over
+    ``tokens``. Every value is then the one-device one, and each rank's
+    gradient is its own shard's."""
+    logits = logits.to(torch.float32)
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    if reduce is not None:
+        m = reduce("max", m, "vocab")
+    s = torch.sum(torch.exp(logits - m), dim=-1)
+    if reduce is not None:
+        s = reduce("sum", s, "vocab")
+    lse = m.squeeze(-1) + torch.log(s)
+    idx = labels - lo
+    label_logit = torch.gather(logits, -1, idx.clamp(
+        0, logits.shape[-1] - 1)[..., None]).squeeze(-1)
+    if reduce is not None:
+        label_logit = reduce("sum", torch.where(
+            (idx >= 0) & (idx < logits.shape[-1]), label_logit, 0.0),
+            "vocab")
+    mask = (labels >= 0).to(torch.float32)
+    total, count = torch.sum((label_logit - lse) * mask), torch.sum(mask)
+    if reduce is not None:
+        total, count = (reduce("sum", t, "tokens") for t in (total, count))
+    return -total / torch.clamp_min(count, 1.0)
+
+
+def lm_loss(params: transformer.LM, cfg: ModelConfig, tokens, labels, *,
+            step_cfg: StepConfig, frontend=None, shard=no_shard):
+    """Returns (loss + aux_loss_weight * aux, {"loss", "aux_loss"}), the
+    loss `token_loss` over the forward's logits (``shard.loss``: on a
+    mesh, on each rank's shards)."""
     out = transformer.forward(
         params, cfg, tokens, mode="train", use_flash=step_cfg.use_flash,
         remat=step_cfg.remat, compute_dtype=step_cfg.compute_dtype,
         frontend_embeds=frontend, shard=shard)
-    logits = out.logits.to(torch.float32)
-    m = torch.amax(logits, dim=-1, keepdim=True).detach()
-    lse = m.squeeze(-1) + torch.log(torch.sum(torch.exp(logits - m), dim=-1))
-    mask = (labels >= 0).to(torch.float32)
-    if is_dtensor(logits):
-        # the label's logit as the sum of one entry and zeros, which each
-        # rank takes over its vocab slice and the sum reduces exactly; a
-        # gather on a vocab-sharded DTensor yields a masked partial that
-        # DTensor cannot reduce onto a shard
-        # (the vocab ids on the logits' own layout, so that the mask is
-        # made on each rank's slice and nothing vocab-wide is gathered)
-        vocab = shard.like(torch.arange(logits.shape[-1],
-                                        device=logits.device)[None, None],
-                           logits)
-        label_logit = torch.sum(torch.where(
-            vocab == labels.clamp_min(0)[..., None], logits, 0.0), dim=-1)
-    else:
-        label_logit = torch.gather(
-            logits, -1, labels.clamp_min(0)[..., None]).squeeze(-1)
-    loss = -torch.sum((label_logit - lse) * mask) / \
-        torch.clamp_min(torch.sum(mask), 1.0)
+    loss = shard.loss(token_loss, out.logits, labels)
     total = loss + step_cfg.aux_loss_weight * out.aux_loss
     return total, {"loss": loss, "aux_loss": out.aux_loss}
 
@@ -119,10 +128,12 @@ def _placed(grad: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
 def loss_and_grads(model: transformer.LM, cfg: ModelConfig,
                    step_cfg: StepConfig, batch: dict, shard=no_shard):
     """(grads by parameter name, the loss, metrics) of one batch. With
-    ``microbatches`` = mb > 1 the batch is split along its first axis:
-    the grads are the sum of the microbatches' float32 grads over mb and
-    the loss the sum of their totals (loss + the weighted aux loss) over
-    mb, and the reported ``aux_loss`` is zero, all as the reference
+    ``microbatches`` = mb > 1 the batch is split along its first axis
+    (on a mesh into each rank's local chunks, the batch placed by
+    `sharding.state.place_batch`): the grads are the sum of the
+    microbatches' float32 grads over mb and the loss the sum of their
+    totals (loss + the weighted aux loss) over mb, and the reported
+    ``aux_loss`` is zero, all as the reference
     reports them (``steps.py:100-109``). Every parameter must be reached
     by the loss: one that is not raises, as does ``use_flash`` (the train
     mode of `transformer.forward`). On a mesh (``DTensor`` parameters and
@@ -136,11 +147,13 @@ def loss_and_grads(model: transformer.LM, cfg: ModelConfig,
     if batch["tokens"].shape[0] % mb:
         raise ValueError(f"batch {batch['tokens'].shape[0]} does not split "
                          f"into {mb} microbatches")
-    # one microbatch is the batch as it is: ``chunk`` on a DTensor split
-    # along its rows gathers every row onto every rank
+    # one microbatch is the batch as it is (``chunk`` on a DTensor split
+    # along its rows gathers every row onto every rank)
     parts = [(batch["tokens"], batch["labels"], fr)] if mb == 1 else \
-        list(zip(batch["tokens"].chunk(mb), batch["labels"].chunk(mb),
-                 fr.chunk(mb) if fr is not None else [None] * mb))
+        list(zip(local_microbatches(batch["tokens"], mb),
+                 local_microbatches(batch["labels"], mb),
+                 local_microbatches(fr, mb) if fr is not None
+                 else [None] * mb))
     acc = loss_sum = None
     with _grads_on(params), shard.scope(batch["tokens"]):
         for tokens, labels, frontend in parts:

@@ -95,11 +95,14 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def to_device(host_batch: dict, device, plan=None) -> dict:
+def to_device(host_batch: dict, device, plan=None,
+              microbatches: int = 1) -> dict:
     """numpy batch -> tensors on ``device``; token ids as int64. With a
     sharding ``plan``, ``DTensor``s on its mesh: those of rank >= 2 on
     the plan's batch spec, the others replicated, as the reference's
-    driver places them (``launch/train.py:96-98``); every rank holds the
+    driver places them (``launch/train.py:96-98``), the rows in the
+    order that gives each rank its share of every one of
+    ``microbatches`` (`sharding.state.place_batch`); every rank holds the
     same global batch and keeps its own shards."""
     import torch
     out = {}
@@ -109,9 +112,8 @@ def to_device(host_batch: dict, device, plan=None) -> dict:
             t = t.long()
         out[k] = t.to(device)
         if plan is not None:
-            from repro_torch.sharding.state import place
-            out[k] = place(out[k], plan.mesh,
-                           plan.batch_spec() if t.ndim >= 2 else ())
+            from repro_torch.sharding.state import place_batch
+            out[k] = place_batch(out[k], plan, microbatches)
     return out
 
 
@@ -264,7 +266,8 @@ def run(argv=None, *, on_step=None, record=None, mesh=None):
     for s in range(start_step, args.steps):
         sync()
         t0 = time.monotonic()
-        batch = to_device(data.batch(s), device, plan)
+        batch = to_device(data.batch(s), device, plan,
+                          step_cfg.microbatches)
         state, metrics = step(state, batch)
         loss = float(metrics["loss"])
         losses.append(loss)

@@ -11,12 +11,15 @@ every case runs inside them and rank 0 hands the results back:
 - ``host``: `launch.mesh.make_host_mesh(device_type="cpu")`, (data 1,
   model 2): tensor parallelism (heads, FFN hidden, vocab, experts);
 - ``fsdp``: ``init_device_mesh`` (data 2, model 1): parameters and the
-  batch sharded over ``data``.
+  batch sharded over ``data``;
+- ``both``: (data 2, model 2), four ranks, both axes split, for
+  qwen2-moe-a2.7b only: its dispatch on each rank's own tokens.
 
 The ranks are plain processes started with ``torchrun``'s variables
 (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), with
-different string hashes (`HASH_SEEDS`), and both pairs share one
-deadline (`MESH_TIMEOUT_S`): a collective that waits for ever fails the
+different string hashes (`HASH_SEEDS`). The two pairs run together,
+then the four ranks of ``both``, and all share one deadline
+(`MESH_TIMEOUT_S`): a collective that waits for ever fails the
 module, with every rank's stacks in the message, instead of holding the
 suite.
 
@@ -40,7 +43,14 @@ Cases, each its own test id:
   (`test_embedding_gather_placements`);
 - (f) a decode step's attention over a cache split along its sequence
   over the model axis, which stays there, against the plain attention
-  (`test_decode_attention_on_key_shards`).
+  (`test_decode_attention_on_key_shards`);
+- (g) a step of two microbatches of qwen2-moe-a2.7b, each rank's local
+  chunks (`sharding.state.place_batch`), against the reference's step
+  with the same microbatches (`test_microbatch_step_matches_jax`);
+- (h) on ``both``: a qwen2-moe-a2.7b step
+  (`test_moe_step_on_both_axes_matches_jax`) and its routing's positions
+  and ``keep``, bit-equal to one device's
+  (`test_moe_positions_on_both_axes_bit_equal`).
 
 Tolerances. Sharding moves float32 sums into another order (partial sums
 over the model axis, the batch over data): losses, norms, learning rates
@@ -87,6 +97,12 @@ ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ("minicpm-2b", "mamba2-1.3b", "qwen2-moe-a2.7b", "zamba2-1.2b",
          "pixtral-12b", "seamless-m4t-large-v2")
 LAYOUTS = {"host": (1, 2), "fsdp": (2, 1)}
+#: The layout with both axes split; its four ranks run (g) and (h) only.
+BOTH = (2, 2)
+MOE_ARCH = "qwen2-moe-a2.7b"
+#: (g)'s microbatches and batch rows: two rows of each microbatch a rank
+#: on ``both``.
+MB, MB_BATCH = 2, 8
 #: The shard points of the reference's forward.
 SHARD_POINTS = {"hidden", "logits", "attn_q", "attn_out", "ffn_hidden",
                 "moe_expert_in", "moe_expert_out", "ssm_x"}
@@ -98,7 +114,7 @@ DRIVER = ["--reduced", "--device", "cpu", "--batch", "4", "--seq", "16",
 RUN1, RUN2 = ["--steps", "4", "--ckpt-every", str(CKPT_STEP)], \
     ["--steps", "6", "--ckpt-every", "100"]
 DRIVER_STEPS = 6
-#: Seconds both pairs of ranks may take together, every case included;
+#: Seconds every layout's ranks may take together, every case included;
 #: a rank that is still running some seconds before it prints its stacks
 #: and exits.
 MESH_TIMEOUT_S = 420
@@ -129,11 +145,12 @@ from repro_torch.models.attention import attend
 from repro_torch.sharding.rules import PlanShard, embedding_rows, \\
     is_dtensor, make_plan, placements
 from repro_torch.sharding.state import StateShardings, distribute_state, \\
-    init_sharded_train_state, place
+    init_sharded_train_state, place, place_batch
 from repro_torch.train import optimizer, steps
 
 mesh = make_host_mesh(device_type="cpu") if layout == "host" else \\
-    init_device_mesh("cpu", (2, 1), mesh_dim_names=("data", "model"))
+    init_device_mesh("cpu", (2, 2) if layout == "both" else (2, 1),
+                     mesh_dim_names=("data", "model"))
 with open(os.path.join(io, "in.pkl"), "rb") as f:
     inp = pickle.load(f)
 out = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "errors": {}}
@@ -144,9 +161,9 @@ def plain(named):
             for n, t in named}
 
 
-def batch_of(arrays, plan):
-    return {k: place(torch.from_numpy(v).long() if v.dtype == np.int32
-                     else torch.from_numpy(v), mesh, plan.batch_spec())
+def batch_of(arrays, plan, microbatches=1):
+    return {k: place_batch(torch.from_numpy(v).long() if v.dtype == np.int32
+                           else torch.from_numpy(v), plan, microbatches)
             for k, v in arrays.items()}
 
 
@@ -177,10 +194,12 @@ def sharded_step(arch, c):
                                        plan.act_spec(name), mesh))))
             return y
 
+    mb = c.get("microbatches", 1)
     step = steps.make_train_step(
         cfg, optimizer.OptimizerConfig(**c["opt"]),
-        steps.StepConfig(compute_dtype=torch.float32), Recording(plan))
-    new, met = step(state, batch_of(c["batch"], plan))
+        steps.StepConfig(compute_dtype=torch.float32, microbatches=mb),
+        Recording(plan))
+    new, met = step(state, batch_of(c["batch"], plan, mb))
     return {"metrics": {k: float(v) for k, v in met.items()},
             "metrics_plain": all(not is_dtensor(v) for v in met.values()),
             "params": plain(new.params.named_parameters()),
@@ -292,12 +311,43 @@ def decode_case():
             "got": got.full_tensor(), "want": want}
 
 
-for arch, c in inp["steps"].items():
-    case("step/" + arch, lambda: sharded_step(arch, c))
-case("compression", compression_case)
-case("driver", driver_case)
-case("embedding", embedding_case)
-case("decode", decode_case)
+def routing_case():
+    # the dispatch of 4 x 16 tokens on the mesh, at a capacity that drops
+    # slots, against one device's routing of the same tokens
+    import functools, types
+    from repro_torch.models import moe
+    cfg = get_config(inp["moe_arch"]).reduced()
+    b, l, e, k = 4, 16, cfg.n_experts, cfg.top_k
+    plan = make_plan(mesh, cfg, ShapeSpec("t", l, b, "train"))
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(b, l, cfg.d_model, generator=g)
+    w = torch.randn(cfg.d_model, e, generator=g)
+    router = types.SimpleNamespace(router=types.SimpleNamespace(w=w))
+    want = moe.route(router, x.reshape(b * l, -1), n_experts=e, top_k=k,
+                     capacity_factor=0.5)
+    fn = functools.partial(moe._dispatch, n_experts=e, top_k=k,
+                           capacity=want[-1], scatter=True)
+    _, (gate, idx, slot), aux = plan.shard_fn().moe_dispatch(
+        fn, place(x, mesh, plan.act_spec("hidden")), place(w, mesh, ()))
+    return {"idx": idx.full_tensor(), "slot": slot.full_tensor(),
+            "gate": gate.full_tensor(), "aux": float(aux.full_tensor()),
+            "want": list(want[:5]), "capacity": want[-1],
+            "tokens": [str(p) for p in idx.placements]}
+
+
+if layout == "both":
+    c = inp["steps"][inp["moe_arch"]]
+    case("step/" + inp["moe_arch"], lambda: sharded_step(inp["moe_arch"], c))
+    case("routing", routing_case)
+else:
+    for arch, c in inp["steps"].items():
+        case("step/" + arch, lambda: sharded_step(arch, c))
+    case("compression", compression_case)
+    case("driver", driver_case)
+    case("embedding", embedding_case)
+    case("decode", decode_case)
+case("step_mb2/" + inp["moe_arch"],
+     lambda: sharded_step(inp["moe_arch"], inp["mb2"]))
 if rank == 0:
     with open(os.path.join(io, "out.pkl"), "wb") as f:
         pickle.dump(out, f)
@@ -312,33 +362,35 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _reference_step(arch):
+def _reference_step(arch, microbatches=1, batch=None):
     """The reference's jitted step of the reduced ``arch`` from its
-    initial state: (its initial parameters as numpy, the batch's arrays,
-    the new state, the metrics)."""
+    initial state, with ``microbatches`` on ``batch`` rows (default
+    `test_torch_train`'s): (its initial parameters as numpy, the batch's
+    arrays, the new state, the metrics)."""
     cfg, jcfg = get_config(arch).reduced(), jax_config(arch).reduced()
-    jstep_cfg = jsteps.StepConfig(remat=False, compute_dtype=jnp.float32)
+    jstep_cfg = jsteps.StepConfig(remat=False, compute_dtype=jnp.float32,
+                                  microbatches=microbatches)
     state = jsteps.init_train_state(jax.random.PRNGKey(0), jcfg, jstep_cfg)
-    _, jbatch = _batch(cfg)
+    _, jbatch = _batch(cfg, **({"batch": batch} if batch else {}))
     jnew, jmet = jax.jit(jsteps.make_train_step(
         jcfg, jopt.OptimizerConfig(**OPT), jstep_cfg))(state, jbatch)
     return (jax.tree.map(np.asarray, state.params),
             {k: np.asarray(v) for k, v in jbatch.items()}, jnew, jmet)
 
 
-def _launch(layout: str, io: Path) -> subprocess.Popen:
+def _launch(layout: str, io: Path, ranks: int, stacks_after: float) -> list:
     port = _free_port()
     code = textwrap.dedent(_WORKER)
     procs = []
-    for rank in range(2):
-        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
+    for rank in range(ranks):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(ranks),
                    LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
                    MASTER_PORT=str(port), OMP_NUM_THREADS="1",
-                   PYTHONHASHSEED=HASH_SEEDS[rank],
+                   PYTHONHASHSEED=HASH_SEEDS[rank % 2],
                    PYTHONPATH=str(ROOT / "src"))
         procs.append(subprocess.Popen(
             [sys.executable, "-c", code, layout, str(io),
-             str(MESH_TIMEOUT_S - 30)], env=env,
+             str(stacks_after)], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     return procs
 
@@ -354,10 +406,12 @@ def one_thread():
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory, one_thread):
     """The reference's steps, the one-device driver through its restart,
-    then both layouts' ranks at once: {"reference": ..., "one": ...,
-    layout: the results rank 0 handed back}."""
+    then every layout's ranks at once: {"reference": ..., "mb2": (g)'s
+    reference step, "one": ..., layout: the results rank 0 handed
+    back}."""
     base = tmp_path_factory.mktemp("mesh")
     reference = {arch: _reference_step(arch) for arch in ARCHS}
+    mb2 = _reference_step(MOE_ARCH, MB, MB_BATCH)
     one_ckpt = base / "one_ckpt"
     argv = DRIVER + ["--ckpt-dir", str(one_ckpt)]
     rec1, rec2 = {}, {}
@@ -369,27 +423,35 @@ def runs(tmp_path_factory, one_thread):
     inp = {"steps": {arch: {"params": ref[0], "batch": ref[1], "opt": OPT}
                      for arch, ref in reference.items()},
            "driver": DRIVER, "run1": RUN1, "run2": RUN2,
-           "ckpt_step": CKPT_STEP, "one_ckpt": str(one_ckpt)}
-    procs = {}
-    for layout in LAYOUTS:
-        io = base / layout
-        io.mkdir()
-        with open(io / "in.pkl", "wb") as f:
-            pickle.dump(inp, f)
-        procs[layout] = _launch(layout, io)
-    out = {"reference": reference, "one": one}
-    logs = {}
+           "ckpt_step": CKPT_STEP, "one_ckpt": str(one_ckpt),
+           "moe_arch": MOE_ARCH,
+           "mb2": {"params": mb2[0], "batch": mb2[1], "opt": OPT,
+                   "microbatches": MB}}
+    procs, logs = {}, {}
     deadline = time.monotonic() + MESH_TIMEOUT_S
     try:
-        for layout, pair in procs.items():
-            logs[layout] = [p.communicate(timeout=max(
-                1.0, deadline - time.monotonic()))[0] for p in pair]
+        # the two pairs together, then the four ranks of ``both``: never
+        # more than four ranks at once beside the rest of the suite
+        for wave in (LAYOUTS, {"both": BOTH}):
+            for layout, (data, model) in wave.items():
+                io = base / layout
+                io.mkdir()
+                with open(io / "in.pkl", "wb") as f:
+                    pickle.dump(inp, f)
+                procs[layout] = _launch(
+                    layout, io, data * model,
+                    max(1.0, deadline - time.monotonic() - 30))
+            for layout in wave:
+                logs[layout] = [p.communicate(timeout=max(
+                    1.0, deadline - time.monotonic()))[0]
+                    for p in procs[layout]]
     finally:
         for pair in procs.values():
             for p in pair:
                 p.kill()
+    out = {"reference": reference, "mb2": mb2, "one": one}
     for layout, pair in procs.items():
-        assert [p.returncode for p in pair] == [0, 0], \
+        assert [p.returncode for p in pair] == [0] * len(pair), \
             (layout, [log[-3000:] for log in logs[layout]])
         with open(base / layout / "out.pkl", "rb") as f:
             out[layout] = pickle.load(f)
@@ -400,7 +462,8 @@ def runs(tmp_path_factory, one_thread):
 def _result(runs, layout, name):
     res = runs[layout]
     assert name not in res["errors"], res["errors"][name]
-    assert res["mesh"] == dict(zip(("data", "model"), LAYOUTS[layout]))
+    assert res["mesh"] == dict(zip(("data", "model"),
+                                   {**LAYOUTS, "both": BOTH}[layout]))
     return res[name]
 
 
@@ -409,8 +472,14 @@ def _result(runs, layout, name):
 def test_sharded_step_matches_jax(runs, layout, arch):
     """(a) One step on the mesh: loss, aux loss, lr and grad norm (plain
     tensors on every rank), the updated parameters and both moments."""
-    got = _result(runs, layout, "step/" + arch)
-    _, _, jnew, jmet = runs["reference"][arch]
+    _check_step(_result(runs, layout, "step/" + arch), arch,
+                runs["reference"][arch])
+
+
+def _check_step(got, arch, reference):
+    """A sharded step's metrics (plain on every rank) and new state
+    against the reference's (`test_torch_train`'s tolerances)."""
+    _, _, jnew, jmet = reference
     assert got["sharded"] and got["metrics_plain"]
     for key in ("loss", "aux_loss", "lr", "grad_norm"):
         close(got["metrics"][key], float(jmet[key]))
@@ -419,6 +488,42 @@ def test_sharded_step_matches_jax(runs, layout, arch):
         opt=types.SimpleNamespace(m=got["m"], v=got["v"],
                                   step=torch.tensor(got["step"])))
     _check_state(get_config(arch).reduced(), pnew, jnew, float(jmet["lr"]))
+
+
+@pytest.mark.parametrize("layout", [*LAYOUTS, "both"])
+def test_microbatch_step_matches_jax(runs, layout):
+    """(g) Two microbatches of qwen2-moe-a2.7b on 8 rows: each rank's
+    local chunks are the reference's global microbatches (their MoE
+    capacity and positions those of the microbatch), so the step holds
+    the reference's step with the same microbatches."""
+    _check_step(_result(runs, layout, "step_mb2/" + MOE_ARCH), MOE_ARCH,
+                runs["mb2"])
+
+
+def test_moe_step_on_both_axes_matches_jax(runs):
+    """(h) qwen2-moe-a2.7b's step on (data 2, model 2): each rank routes
+    and dispatches its own tokens, the experts' slots summed over
+    ``data``."""
+    _check_step(_result(runs, "both", "step/" + MOE_ARCH), MOE_ARCH,
+                runs["reference"][MOE_ARCH])
+
+
+def test_moe_positions_on_both_axes_bit_equal(runs):
+    """(h) The dispatch on (data 2, model 2) at a capacity that drops
+    slots: each token's experts, and each slot's position (the capacity
+    where it is dropped), bit-equal to one device's routing of the same
+    tokens; the gates and the aux loss within float32 sums."""
+    got = _result(runs, "both", "routing")
+    from torch.distributed.tensor import Replicate, Shard
+    assert got["tokens"] == [str(Shard(0)), str(Replicate())]
+    probs, idx, gate, pos, keep = got["want"]
+    assert keep.any() and not keep.all()
+    assert torch.equal(got["idx"], idx)
+    assert torch.equal(got["slot"], torch.where(keep, pos, got["capacity"]))
+    close(got["gate"], gate)
+    e = probs.shape[1]
+    ce = torch.nn.functional.one_hot(idx[:, 0], e).float().mean(dim=0)
+    close(got["aux"], float(e * torch.sum(probs.mean(dim=0) * ce)))
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
