@@ -8,6 +8,7 @@ from repro_torch.kernels.matmul_int8.kernel import (BK_TILES, BM_TILES,
                                                     BN_TILES, matmul_int8)
 from repro_torch.kernels.matmul_int8.ref import (matmul_int8_ref,
                                                  quantize_rowwise)
+from repro_torch.runtime.spans import span
 
 
 def quantized_matmul(x: torch.Tensor, w: torch.Tensor, *,
@@ -23,8 +24,9 @@ def quantized_matmul(x: torch.Tensor, w: torch.Tensor, *,
     tensors the plain version runs."""
     m, k = x.shape
     _, n = w.shape
-    x_q, x_s = quantize_rowwise(x, axis=1)
-    w_q, w_s = quantize_rowwise(w, axis=0)
+    with span("matmul_int8.quantize"):
+        x_q, x_s = quantize_rowwise(x, axis=1)
+        w_q, w_s = quantize_rowwise(w, axis=0)
     if not use_kernel:
         return matmul_int8_ref(x_q, w_q, x_s, w_s, out_dtype)
     bm, bk, bn = block_shapes or default_blocks(m, k, n)

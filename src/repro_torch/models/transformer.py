@@ -44,6 +44,7 @@ from repro_torch.models.layers import MLP, Embedding, RMSNorm, dense, \
     Shard, embed, init_parameters, mlp, no_shard, rms_norm, unembed
 from repro_torch.models.moe import MoE, moe
 from repro_torch.models.ssm import Mamba2, mamba2_block
+from repro_torch.runtime.spans import span
 
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 
@@ -421,5 +422,6 @@ def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor, *,
         table = params.embed if cfg.tie_embeddings else params.unembed
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        logits = shard("logits", unembed(table, x, shard))
+        with span("model.lm_head"):
+            logits = shard("logits", unembed(table, x, shard))
     return ForwardOut(logits=logits, caches=new_caches, aux_loss=aux)

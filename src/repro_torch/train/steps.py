@@ -30,6 +30,7 @@ from repro_torch.models.layers import no_shard
 from repro_torch.models.ssm import SSMState, init_ssm_state
 from repro_torch.runtime.compression import compress_grads_with_feedback, \
     init_residuals
+from repro_torch.runtime.spans import span
 from repro_torch.sharding.rules import is_dtensor, local_microbatches
 from repro_torch.train.optimizer import AdamWState, OptimizerConfig, \
     adamw_update, init_adamw
@@ -157,11 +158,13 @@ def loss_and_grads(model: transformer.LM, cfg: ModelConfig,
     acc = loss_sum = None
     with _grads_on(params), shard.scope(batch["tokens"]):
         for tokens, labels, frontend in parts:
-            total, metrics = lm_loss(model, cfg, tokens, labels,
-                                     step_cfg=step_cfg, frontend=frontend,
-                                     shard=shard)
-            g = torch.autograd.grad(total, [params[n] for n in names])
-            g = [_placed(t, params[n]) for n, t in zip(names, g)]
+            with span("train.forward"):
+                total, metrics = lm_loss(model, cfg, tokens, labels,
+                                         step_cfg=step_cfg,
+                                         frontend=frontend, shard=shard)
+            with span("train.backward"):
+                g = torch.autograd.grad(total, [params[n] for n in names])
+                g = [_placed(t, params[n]) for n, t in zip(names, g)]
             if mb == 1:
                 return dict(zip(names, g)), metrics["loss"].detach(), \
                     {k: v.detach() for k, v in metrics.items()}
@@ -211,17 +214,20 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
                          "kernel; the train step runs the plain product")
 
     def train_step(state: TrainState, batch: dict):
-        grads, _, metrics = loss_and_grads(state.params, cfg, step_cfg,
-                                           batch, shard)
-        residuals = state.residuals
-        if step_cfg.compress_pod_grads and residuals is not None:
-            grads, residuals = compress_grads_with_feedback(grads,
-                                                            residuals)
-        _, new_opt, opt_metrics = adamw_update(
-            opt_cfg, dict(state.params.named_parameters()), grads, state.opt)
-        return TrainState(params=state.params, opt=new_opt,
-                          residuals=residuals, rng=state.rng + 1), \
-            {k: _plain(v) for k, v in {**metrics, **opt_metrics}.items()}
+        with span("train.step"):
+            grads, _, metrics = loss_and_grads(state.params, cfg, step_cfg,
+                                               batch, shard)
+            residuals = state.residuals
+            if step_cfg.compress_pod_grads and residuals is not None:
+                grads, residuals = compress_grads_with_feedback(grads,
+                                                                residuals)
+            with span("train.optimizer"):
+                _, new_opt, opt_metrics = adamw_update(
+                    opt_cfg, dict(state.params.named_parameters()), grads,
+                    state.opt)
+            return TrainState(params=state.params, opt=new_opt,
+                              residuals=residuals, rng=state.rng + 1), \
+                {k: _plain(v) for k, v in {**metrics, **opt_metrics}.items()}
 
     return train_step
 
@@ -250,12 +256,14 @@ def make_prefill_step(cfg: ModelConfig, step_cfg: StepConfig, shard=None):
     """``shard``: as `make_train_step`'s."""
     @torch.no_grad()
     def prefill(params, batch):
-        out = transformer.forward(
-            params, cfg, batch["tokens"], mode="prefill",
-            use_flash=step_cfg.use_flash,
-            compute_dtype=step_cfg.compute_dtype,
-            frontend_embeds=batch.get("frontend"), shard=shard or no_shard)
-        return out.logits[:, -1], out.caches
+        with span("serve.prefill"):
+            out = transformer.forward(
+                params, cfg, batch["tokens"], mode="prefill",
+                use_flash=step_cfg.use_flash,
+                compute_dtype=step_cfg.compute_dtype,
+                frontend_embeds=batch.get("frontend"),
+                shard=shard or no_shard)
+            return out.logits[:, -1], out.caches
 
     return prefill
 
