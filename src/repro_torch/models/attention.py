@@ -30,6 +30,11 @@ KV_QUANT = False          # int8 KV cache (capacity optimization)
 #: Shortest causal prefill that runs on the flash_attention kernel.
 FLASH_MIN_LEN = 512
 
+#: Decode attentions served so far: "grouped" over the cache's own KV
+#: heads (`grouped_decode_attention`, plain tensors), "expanded" over
+#: the KV heads repeated to every query head (``DTensor`` operands).
+decode_attention_calls = {"grouped": 0, "expanded": 0}
+
 
 class Attention(nn.Module):
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
@@ -60,8 +65,11 @@ def _repeat_kv(x: torch.Tensor, rep: int) -> torch.Tensor:
 def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool, kv_length=None, k_offset: int = 0,
                   reduce=None) -> torch.Tensor:
-    """q: (B,Lq,H,hd); k,v: (B,Lk,H,hd). Returns (B,Lq,H,hd). Scores and
-    softmax in float32, the probabilities cast back to q's dtype.
+    """q: (B,Lq,H,hd); k,v: (B,Lk,H,hd), the KV heads already repeated
+    to every query head (`_repeat_kv`; a decode step over a cache in its
+    own KV heads is `grouped_decode_attention`). Returns (B,Lq,H,hd).
+    Scores and softmax in float32, the probabilities cast back to q's
+    dtype.
 
     k and v may be one slice of the keys along the sequence, starting at
     position ``k_offset``, with ``reduce(op, t)`` reducing ``t`` by
@@ -90,6 +98,38 @@ def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = (p / reduce("sum", torch.sum(p, dim=-1, keepdim=True))).to(
         q.dtype)
     return reduce("sum", torch.einsum("bhqk,bkhd->bqhd", probs, v))
+
+
+def grouped_decode_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor,
+                             kv_length: torch.Tensor) -> torch.Tensor:
+    """One query per row against a cache in its own KV heads: q (B, 1, H,
+    hd); k, v (B, S, G, hd) with G dividing H, query head h reading KV
+    head h // (H // G), as `_repeat_kv` lays them; keys at or past
+    ``kv_length`` (B,) masked. Returns (B, 1, H, hd): the math of
+    `dot_attention` over `_repeat_kv`'s expansion, scores and softmax in
+    float32, the probabilities in q's dtype.
+
+    Each group's products read ``k[:, :, g]`` and ``v[:, :, g]`` where
+    they lie (the row stride G * hd is the product's leading dimension),
+    so nothing of the cache's size is written. With one query head a
+    group (G == H) the product is `dot_attention`'s, batched over the
+    heads, where a product a head would be 2H launches of a
+    matrix-vector product."""
+    b, _, h, hd = q.shape
+    s, g = k.shape[1], k.shape[2]
+    if g == h:
+        return dot_attention(q, k, v, causal=False, kv_length=kv_length)
+    qf = q.to(torch.float32).reshape(b, g, h // g, hd)
+    kf = k.to(torch.float32)
+    scores = torch.stack([qf[:, i] @ kf[:, :, i].transpose(1, 2)
+                          for i in range(g)], dim=1) * (1.0 / math.sqrt(hd))
+    past = torch.arange(s, device=q.device)[None, :] >= kv_length[:, None]
+    scores = scores.masked_fill(past[:, None, None, :],
+                                torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)     # (B, G, R, S)
+    out = torch.stack([probs[:, i] @ v[:, :, i] for i in range(g)], dim=1)
+    return out.reshape(b, 1, h, hd)
 
 
 def dot_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -229,8 +269,8 @@ def attention(params: Attention, x: torch.Tensor, *, n_heads: int,
             v_cache = cache.v + (ohq * qv.to(torch.float32)).to(cache.v.dtype)
             k_scale = cache.k_scale + ohq * sk
             v_scale = cache.v_scale + ohq * sv
-            kf = _repeat_kv(dequantize_kv(k_cache, k_scale, x.dtype), rep)
-            vf = _repeat_kv(dequantize_kv(v_cache, v_scale, x.dtype), rep)
+            kf = dequantize_kv(k_cache, k_scale, x.dtype)
+            vf = dequantize_kv(v_cache, v_scale, x.dtype)
             new_cache = KVCache(k=k_cache, v=v_cache,
                                 length=cache.length + 1,
                                 k_scale=k_scale, v_scale=v_scale)
@@ -239,12 +279,20 @@ def attention(params: Attention, x: torch.Tensor, *, n_heads: int,
                              cache.k)
             k_cache = cache.k + ohq * k.to(cache.k.dtype)
             v_cache = cache.v + ohq * v.to(cache.v.dtype)
-            kf = _repeat_kv(k_cache, rep)
-            vf = _repeat_kv(v_cache, rep)
+            kf, vf = k_cache, v_cache
             new_cache = KVCache(k=k_cache, v=v_cache,
                                 length=cache.length + 1)
-        out = attend(q, kf, vf, causal=False, kv_length=cache.length + 1,
-                     shard=shard)
+        if type(q) is torch.Tensor and type(kf) is torch.Tensor:
+            decode_attention_calls["grouped"] += 1
+            out = grouped_decode_attention(q, kf, vf, cache.length + 1)
+        else:
+            # ``DTensor``s on a mesh: k and v are laid by q's head
+            # placement (`sharding.rules.attention_on_shards`), so each
+            # query head takes its own copy of its KV head
+            decode_attention_calls["expanded"] += 1
+            out = attend(q, _repeat_kv(kf, rep), _repeat_kv(vf, rep),
+                         causal=False, kv_length=cache.length + 1,
+                         shard=shard)
     out = shard("attn_out", out)
     out = out.reshape(b, l, n_heads * head_dim)
     return dense(params.wo, out, shard), new_cache
